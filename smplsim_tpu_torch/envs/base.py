@@ -1,0 +1,230 @@
+"""Batched humanoid environment (port of smplsim_tpu/envs/base.py).
+
+An env holds the model and its static configuration; its state is an
+EnvState of batch-first tensors, one row per environment:
+
+    state = env.reset(batch, generator)
+    state = env.step_autoreset(state, action)
+
+Semantics follow the JAX package (and the reference simulator it mirrors):
+
+  * one control step = control_frequency_inv (15) physics substeps at 450 Hz
+    with the stable-PD torque recomputed every substep;
+  * Default init: qpos = 0 except z = 0.94 and root quat (.5,.5,.5,.5);
+  * step ordering: update_task -> cache the root -> physics -> cur_t += 1
+    -> obs -> reward -> termination flags;
+  * termination: a floor contact of a geom outside contact_bodies;
+    truncation once cur_t exceeds episode_length;
+  * step_autoreset: envs that finished are replaced by a fresh reset, keeping
+    the finishing step's reward, flags and info.
+
+The env's randomness is the torch.Generator it was reset with, carried in
+EnvState.rng; it must live on the model's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from smplsim_tpu_torch.envs import obs as obs_mod
+from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.physics import constraints, engine, kinematics, solver
+from smplsim_tpu_torch.physics.engine import PhysicsState
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """Static env configuration (the JAX package's EnvConfig, uhc_pd control,
+    observation v1, Default init)."""
+
+    episode_length: int = 300
+    sim_timestep_inv: int = 450
+    control_frequency_inv: int = 15
+    root_height_obs: bool = True
+    enable_early_termination: bool = True
+    clip_actions: bool = True
+    contact_bodies: Tuple[str, ...] = ("R_Ankle", "L_Ankle", "R_Toe", "L_Toe")
+
+    @property
+    def dt(self) -> float:
+        return self.control_frequency_inv / self.sim_timestep_inv
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Complete batched env state: everything the next step needs."""
+
+    phys: PhysicsState
+    obs: torch.Tensor          # (B, obs_size)
+    reward: torch.Tensor       # (B,)
+    terminated: torch.Tensor   # (B,) bool
+    truncated: torch.Tensor    # (B,) bool
+    cur_t: torch.Tensor        # (B,) int32 control steps since reset
+    task: Any                  # task state (None for the plain env)
+    info: dict                 # power, nactive, overflow, stalled; (B,) each
+    pd_cache: tuple            # (M, C, efc_force) of the last substep
+    kin: kinematics.Kin        # FK of phys.qpos
+    rng: torch.Generator       # drawn from by task samples and resets
+
+    @property
+    def done(self) -> torch.Tensor:
+        return self.terminated | self.truncated
+
+
+def select(mask: torch.Tensor, a, b):
+    """Row-wise where over matching EnvState trees: a where mask (B,) is set,
+    else b. Non-tensor leaves (the generator, None) come from b."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(b, **{
+            f.name: select(mask, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)})
+    if isinstance(a, (tuple, list)):
+        return type(b)(select(mask, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: select(mask, a[k], b[k]) for k in b}
+    return b
+
+
+class HumanoidEnv:
+    """Plain humanoid env (no task): reward 0, truncate on episode length.
+
+    qp_iters / qp_rows / qp_tol / keeps override the SMPLSIM_QP_ITERS /
+    SMPLSIM_QP_ROWS / SMPLSIM_QP_TOL / SMPLSIM_*_KEEP knobs for this env."""
+
+    def __init__(self, model: RobotModel, config: EnvConfig | None = None, *,
+                 qp_iters: int | None = None, qp_rows: int | None = None,
+                 qp_tol: float | None = None, keeps=None):
+        self.model = model
+        self.config = config or EnvConfig()
+        ts = float(model.timestep)
+        if round(1.0 / ts) != self.config.sim_timestep_inv:
+            raise ValueError(f"model timestep {ts:.6f} != 1/{self.config.sim_timestep_inv}")
+        legal_bodies = {model.body_names.index(n) for n in self.config.contact_bodies}
+        self._legal_floor_geom = torch.as_tensor(
+            np.asarray([b in legal_bodies for b in model.geom_body]), device=model.device)
+        self._reset_ref = engine.reset_reference(model)
+        self._qp = dict(qp_iters=qp_iters, qp_rows=qp_rows, qp_tol=qp_tol, keeps=keeps)
+        rows = solver.COMPACT_ROWS if qp_rows is None else qp_rows
+        self._qp_rows = min(rows, constraints.NEFC)
+
+    # ---------------- sizes ----------------
+    @property
+    def action_size(self) -> int:
+        return self.model.nu
+
+    @property
+    def task_obs_size(self) -> int:
+        return 0
+
+    @property
+    def obs_size(self) -> int:
+        return obs_mod.self_obs_size(self.model.nbody, self.config.root_height_obs) \
+            + self.task_obs_size
+
+    @property
+    def upright_start(self) -> bool:
+        # the baked humanoid carries the SMPL base rotation
+        return False
+
+    # ---------------- task hooks (overridden by tasks) ----------------
+    def init_task(self, batch: int) -> Any:
+        return None
+
+    def reset_task(self, generator: torch.Generator, task: Any, cur_t: torch.Tensor) -> Any:
+        return task
+
+    def update_task(self, generator: torch.Generator, task: Any, cur_t: torch.Tensor) -> Any:
+        return task
+
+    def task_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin) -> torch.Tensor:
+        return phys.qpos[:, :0]
+
+    def pre_physics(self, task: Any, phys: PhysicsState, kin: kinematics.Kin) -> Any:
+        return task
+
+    def reward(self, task: Any, phys: PhysicsState, kin: kinematics.Kin,
+               action: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(phys.qpos[:, 0])
+
+    # ---------------- core ----------------
+    def _init_phys(self, batch: int) -> PhysicsState:
+        m = self.model
+        qpos = torch.zeros((batch, m.nq), dtype=m.dtype, device=m.device)
+        qpos[:, 2] = 0.94
+        qpos[:, 3:7] = 0.5
+        return PhysicsState(qpos, torch.zeros((batch, m.nv), dtype=m.dtype, device=m.device))
+
+    def compute_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin) -> torch.Tensor:
+        body_rot = kinematics.body_quats(self.model, phys.qpos)
+        prop = obs_mod.compute_self_obs_v1(
+            phys.qvel, kin.xpos, body_rot, self.upright_start,
+            self.config.root_height_obs, self.model.humanoid_type)
+        return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
+
+    def reset(self, batch: int, generator: torch.Generator) -> EnvState:
+        """Fresh states for `batch` envs: task first, then the humanoid; the
+        stable-PD cache is the fresh (M, C) at the init pose (the reference's
+        forward pass after a reset) with a cold constraint warm start."""
+        m = self.model
+        dev = m.device
+        cur_t = torch.zeros(batch, dtype=torch.int32, device=dev)
+        task = self.reset_task(generator, self.init_task(batch), cur_t)
+        phys = self._init_phys(batch)
+        kin = kinematics.fk(m, phys.qpos)
+        obs = self.compute_obs(task, phys, kin)
+        M, C = engine.pd_cache(m, phys)
+        zeros = torch.zeros(batch, dtype=m.dtype, device=dev)
+        false = torch.zeros(batch, dtype=torch.bool, device=dev)
+        return EnvState(
+            phys=phys, obs=obs, reward=zeros, terminated=false, truncated=false,
+            cur_t=cur_t, task=task,
+            info={"power": zeros, "nactive": cur_t, "overflow": false, "stalled": false},
+            pd_cache=(M, C, torch.zeros((batch, constraints.NEFC), dtype=m.dtype, device=dev)),
+            kin=kin, rng=generator)
+
+    def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
+        cfg = self.config
+        m = self.model
+        action = action.to(state.phys.qpos.dtype)
+        if cfg.clip_actions:
+            action = action.clamp(-1.0, 1.0)
+
+        task = self.update_task(state.rng, state.task, state.cur_t)
+        task = self.pre_physics(task, state.phys, state.kin)
+
+        phys, lean, power, cache = engine.control_step(
+            m, state.phys, action, control_freq_inv=cfg.control_frequency_inv,
+            cache=state.pd_cache, reset_ref=self._reset_ref, **self._qp)
+
+        cur_t = state.cur_t + 1
+        kin = kinematics.fk(m, phys.qpos)
+        obs = self.compute_obs(task, phys, kin)
+        rew = self.reward(task, phys, kin, action)
+        truncated = cur_t > cfg.episode_length
+        illegal = lean.geom_floor_contact & ~self._legal_floor_geom
+        terminated = illegal.any(1) & cfg.enable_early_termination
+        return EnvState(
+            phys=phys, obs=obs, reward=rew, terminated=terminated, truncated=truncated,
+            cur_t=cur_t, task=task,
+            # overflow: a substep had more active rows than the compact solve
+            # holds, so its shallowest rows were dropped
+            info={"power": power, "nactive": lean.nactive_max,
+                  "overflow": lean.nactive_max > self._qp_rows,
+                  "stalled": lean.stalled_any},
+            pd_cache=cache, kin=kin, rng=state.rng)
+
+    def step_autoreset(self, state: EnvState, action: torch.Tensor) -> EnvState:
+        """Step, then reset every env that finished (terminated or
+        truncated). Their reward, flags and info are the finishing step's;
+        phys, obs, task and caches come from the reset."""
+        nxt = self.step(state, action)
+        fresh = self.reset(nxt.cur_t.shape[0], nxt.rng)
+        fresh = dataclasses.replace(
+            fresh, reward=nxt.reward, terminated=nxt.terminated,
+            truncated=nxt.truncated, info=nxt.info)
+        return select(nxt.done, fresh, nxt)

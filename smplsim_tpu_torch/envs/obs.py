@@ -1,0 +1,43 @@
+"""Proprioceptive observations, batched (port of smplsim_tpu/envs/obs.py, v1).
+
+Heading-invariant: positions, rotations and velocities are expressed in the
+frame that removes the root yaw (and the SMPL base rotation when the model
+was not built upright).
+"""
+from __future__ import annotations
+
+import torch
+
+from smplsim_tpu_torch import transforms as T
+
+
+def compute_self_obs_v1(qvel: torch.Tensor, body_pos: torch.Tensor,
+                        body_rot: torch.Tensor, upright_start: bool,
+                        root_height_obs: bool, humanoid_type: str = "smpl") -> torch.Tensor:
+    """Obs v1 (B, n): root height, local body positions, 6-D body rotations,
+    local root linear and angular velocity, hinge rates. body_pos (B,J,3),
+    body_rot (B,J,4) wxyz, qvel (B,nv)."""
+    B, J, _ = body_pos.shape
+    root_pos = body_pos[:, 0]
+    root_rot = body_rot[:, 0]
+    if not upright_start:
+        root_rot = T.remove_base_rot(root_rot, humanoid_type)
+    heading_inv = T.calc_heading_quat_inv(root_rot)                 # (B,4)
+
+    parts = []
+    if root_height_obs:
+        parts.append(root_pos[:, 2:3])
+    h = heading_inv[:, None, :].expand(B, J, 4)
+    local_body_pos = T.quat_rotate(h, body_pos - root_pos[:, None, :])
+    parts.append(local_body_pos[:, 1:].reshape(B, -1))
+    parts.append(T.quat_to_tan_norm(T.quat_mul(h, body_rot)).reshape(B, -1))
+    parts.append(T.quat_rotate(heading_inv, qvel[:, 0:3]))
+    parts.append(T.quat_rotate(heading_inv, qvel[:, 3:6]))
+    parts.append(qvel[:, 6:])
+    return torch.cat(parts, dim=1)
+
+
+def self_obs_size(nbody: int, root_height_obs: bool) -> int:
+    """Width of compute_self_obs_v1."""
+    n = 1 if root_height_obs else 0
+    return n + (nbody - 1) * 3 + nbody * 6 + 3 + 3 + (nbody - 1) * 3

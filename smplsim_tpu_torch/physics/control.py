@@ -1,0 +1,41 @@
+"""Stable-PD control, batched (port of smplsim_tpu/physics/control.py).
+
+    qpos_err = [0_6; q + dt qv - q*]
+    qacc = (M + dt diag(Kd))^-1 (-C - Kp qpos_err - Kd qv)
+    tau  = -Kp qpos_err[6:] - Kd (qv + dt qacc)[6:], clipped to torque_lim
+
+M includes armature; M and C are the PREVIOUS substep's, as MuJoCo's
+mjData.qM and qfrc_bias are when the reference controller reads them.
+"""
+from __future__ import annotations
+
+import torch
+
+from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.ops import linalg
+
+
+def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tensor:
+    """action in [-1,1]^nu -> joint-position setpoint."""
+    return action * model.pd_action_scale + model.pd_action_offset
+
+
+def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target):
+    """The stable-PD solve's right-hand side (B,nv,1), its diagonal shift
+    dt*kd (B,nv) and the hinge position error (B,nu)."""
+    B, nv = qvel.shape
+    dt = model.timestep
+    z6 = torch.zeros((B, 6), dtype=qvel.dtype, device=qvel.device)
+    kd = torch.cat([z6[0], model.jkd])
+    qerr = qpos[:, 7:] + qvel[:, 6:] * dt - target
+    rhs = -C_prev - torch.cat([z6, model.jkp * qerr], 1) - kd * qvel
+    return rhs[..., None], (kd * dt).expand(B, nv).contiguous(), qerr
+
+
+def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
+    """tau (B,nu) from the stale (M, C) and the current state; the
+    (M + dt diag(kd)) solve is one fused factor+solve (`linalg.chol_solve`)."""
+    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
+    qacc = linalg.chol_solve(M_prev, rhs, diag)[..., 0]
+    tau = -model.jkp * qerr - model.jkd * (qvel[:, 6:] + qacc[:, 6:] * model.timestep)
+    return torch.clamp(tau, -model.torque_lim, model.torque_lim)

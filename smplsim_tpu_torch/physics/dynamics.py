@@ -1,0 +1,69 @@
+"""Mass matrix and bias forces, batched (CRBA / RNEA about the world origin).
+
+Port of smplsim_tpu/physics/dynamics.py (and its batched twin
+dynamics_lanes.py):
+
+  M = anc^T * G + anc * G^T - diag(G) + diag(armature),
+      G_ij = S_i . (IC_{b(j)} S_j)
+  C_i = S_i . sum_{b in subtree(i)} [I_b a_b + v_b x* (I_b v_b) - f_grav,b]
+
+with IC the composite spatial inertias and a_b the velocity-product
+accelerations; the tree recursions are dense products with the static masks
+of physics/topology.py.
+"""
+from __future__ import annotations
+
+import torch
+
+from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.physics import algebra
+from smplsim_tpu_torch.physics.kinematics import Kin
+from smplsim_tpu_torch.physics.topology import mask_tensor
+
+
+def _mask(model: RobotModel, name: str, like: torch.Tensor) -> torch.Tensor:
+    return mask_tensor(model.parents, name, like.dtype, like.device)
+
+
+def mass_matrix(model: RobotModel, kin: Kin) -> torch.Tensor:
+    """(B,nv,nv) joint-space inertia including armature (== mj_fullM)."""
+    S = kin.S
+    nv = S.shape[1]
+    dtype = S.dtype
+    I_O = algebra.spatial_inertia(model.body_mass.to(dtype), kin.com, kin.inertia_w)
+    IC = torch.einsum("bd,ndij->nbij", _mask(model, "subtree_body", S), I_O)
+    dof_body = _mask(model, "dof_body", S)
+    F = (IC[:, dof_body] @ S[..., None])[..., 0]                # (B,nv,6)
+    G = S @ F.transpose(-1, -2)                                  # (B,nv,nv)
+    anc = _mask(model, "dof_prefix", S)
+    Gd = torch.diagonal(G, dim1=-2, dim2=-1)
+    eye = torch.eye(nv, dtype=dtype, device=S.device)
+    M = anc.T * G + anc * G.transpose(-1, -2) - eye * Gd[:, None, :]
+    # the transposed operands leave M column-major; the solve kernels take
+    # row-major (M is symmetric, so this only moves memory)
+    return (M + eye * model.armature.to(dtype)).contiguous()
+
+
+def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
+    """(B,nv) Coriolis/centrifugal plus gravity forces (== qfrc_bias)."""
+    S = kin.S
+    dtype = S.dtype
+    Sq = S * qvel[..., None]                                     # (B,nv,6)
+    v_dof = _mask(model, "dof_frame", S) @ Sq
+    w = algebra.motion_cross(v_dof, Sq)
+    body_dof = _mask(model, "body_dof", S)
+    a_body = body_dof @ w                                        # (B,J,6)
+    V = body_dof @ Sq
+    mass = model.body_mass.to(dtype)
+    I_O = algebra.spatial_inertia(mass, kin.com, kin.inertia_w)
+    IV = (I_O @ V[..., None])[..., 0]
+    f = (I_O @ a_body[..., None])[..., 0] + algebra.force_cross(V, IV)
+    mg = mass[:, None] * model.gravity.to(dtype)[None, :]        # (J,3)
+    f = f - torch.cat([algebra.cross(kin.com, mg), mg.expand_as(kin.com)], dim=-1)
+    fC = _mask(model, "dof_subtree_body", S) @ f                 # (B,nv,6)
+    return (S * fC).sum(-1)
+
+
+def body_twists(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
+    """(B,J,6) body twists [omega; v_O] about the world origin."""
+    return _mask(model, "body_dof", kin.S) @ (kin.S * qvel[..., None])

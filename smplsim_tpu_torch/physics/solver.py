@@ -1,0 +1,110 @@
+"""Constraint forces through the compact active subsystem, batched.
+
+Port of smplsim_tpu/physics/solver.py in the form of the batched spine
+(substep_lanes.py::solve_constraints_lanes). The active rows are gathered
+into K compact slots (active rows first in their original order, inactive
+rows after them, the `_slot_rank` order); one fused factor+solve of M gives
+both the smooth acceleration and W = M^-1 J^T from the right-hand side
+[qfrc | J^T]; the Delassus system A = J W + diag(R) goes to the contact QP;
+the compact forces scatter back to the full row layout.
+
+Knob (the JAX package's, same default): SMPLSIM_QP_ROWS is K before the
+min with NEFC.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from smplsim_tpu_torch.ops import linalg, qp
+from smplsim_tpu_torch.physics.constraints import EFC, MAX_LIMITS, NEFC
+from smplsim_tpu_torch.physics.topology import mask_tensor
+
+COMPACT_ROWS = int(os.environ.get("SMPLSIM_QP_ROWS", 64))
+
+
+def compact_rows(active: torch.Tensor, K: int) -> torch.Tensor:
+    """(B,K) row indices of the compact slots: active rows in their original
+    order, then inactive rows in theirs."""
+    order = torch.sort(active.to(torch.uint8), dim=1, descending=True, stable=True).indices
+    return order[:, :K]
+
+
+@dataclasses.dataclass
+class Rows:
+    """The K compact rows of a batch of constraint sets."""
+
+    idx: torch.Tensor     # (B,K) row index in the full layout
+    actf: torch.Tensor    # (B,K) 1.0 where the row is active
+    J: torch.Tensor       # (B,K,nv) jacobian rows, zero where inactive
+    aref: torch.Tensor    # (B,K)
+    R: torch.Tensor       # (B,K)
+    f0: torch.Tensor      # (B,K) warm start
+
+
+def select_rows(model, S: torch.Tensor, efc: EFC, f_warm: torch.Tensor, K: int) -> Rows:
+    """Gather the K compact rows and build their jacobians. S (B,nv,6) dof
+    subspaces; f_warm (B,NEFC) previous forces in the full row layout."""
+    B, nv = S.shape[0], S.shape[1]
+    dtype = S.dtype
+    idx = compact_rows(efc.active, K)
+    actf = efc.active.gather(1, idx).to(dtype)
+    aref = torch.cat([efc.l_aref, efc.aref.reshape(B, -1)], 1).gather(1, idx)
+    R = torch.cat([efc.l_R, efc.R.reshape(B, -1)], 1).gather(1, idx)
+    f0 = f_warm.gather(1, idx)
+
+    # contact rows: (W6 S^T) * (body_dof[body2] - body_dof[body1]);
+    # limit rows straight from l_J
+    is_con = idx >= MAX_LIMITS
+    ci = (idx - MAX_LIMITS).clamp_min(0)
+    W6 = efc.W6.reshape(B, -1, 6).gather(1, ci[..., None].expand(B, K, 6))
+    W6 = torch.where(is_con[..., None], W6, torch.zeros_like(W6))
+    zero = torch.zeros_like(idx)
+    b1 = torch.where(is_con, efc.body1.repeat_interleave(4, 1).gather(1, ci), zero)
+    b2 = torch.where(is_con, efc.body2.repeat_interleave(4, 1).gather(1, ci), zero)
+    body_dof = mask_tensor(model.parents, "body_dof", dtype, S.device)
+    body_dof = torch.cat([torch.zeros_like(body_dof[:1]), body_dof], 0)  # row 0: world
+    relmask = body_dof[b2 + 1] - body_dof[b1 + 1]                          # (B,K,nv)
+    J_lim = efc.l_J.gather(1, idx.clamp_max(MAX_LIMITS - 1)[..., None].expand(B, K, nv))
+    J_lim = torch.where(is_con[..., None], torch.zeros_like(J_lim), J_lim)
+    J = ((W6 @ S.transpose(1, 2)) * relmask + J_lim) * actf[..., None]
+    return Rows(idx=idx, actf=actf, J=J, aref=aref, R=R, f0=f0)
+
+
+def smooth_rhs(qfrc: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """(B,nv,1+K) right-hand side [qfrc | J^T] of the fused solve with M."""
+    return torch.cat([qfrc[..., None], rows.J.transpose(1, 2)], 2)
+
+
+def delassus(rows: Rows, X: torch.Tensor):
+    """QP system from X = M^-1 [qfrc | J^T]: A = J W + diag(R) (B,K,K) and
+    b = (aref - J qacc_smooth) * active (B,K)."""
+    qacc_smooth, W = X[:, :, 0], X[:, :, 1:]
+    A = rows.J @ W + torch.diag_embed(rows.R)
+    b = (rows.aref - (rows.J @ qacc_smooth[..., None])[..., 0]) * rows.actf
+    return A, b
+
+
+def solve_constraints(model, S, M, qfrc, efc: EFC, f_warm, iters=None, K=None, tol=None):
+    """S (B,nv,6) dof subspaces; M (B,nv,nv) mass matrix; qfrc (B,nv) smooth
+    force; f_warm (B,NEFC) previous forces in the full row layout.
+
+    Returns (qacc (B,nv), efc_force (B,NEFC), nactive (B,) int32 active
+    rows (past K, the later active rows in row order were left out),
+    stalled (B,): the QP stopped short of its tolerance)."""
+    K = min(COMPACT_ROWS, NEFC) if K is None else K
+    tol = qp.tol_for(S.dtype) if tol is None else tol
+    B = qfrc.shape[0]
+
+    rows = select_rows(model, S, efc, f_warm, K)
+    X = linalg.chol_solve(M, smooth_rhs(qfrc, rows))
+    A, b = delassus(rows, X)
+    f = qp.newton_qp(A, b, rows.actf, rows.f0, iters, tol)
+
+    qacc = X[:, :, 0] + (X[:, :, 1:] @ f[..., None])[..., 0]
+    efc_force = torch.zeros((B, NEFC), dtype=S.dtype, device=S.device).scatter(1, rows.idx, f)
+    nactive = efc.active.sum(1, dtype=torch.int32)
+    stalled = qp.kkt_residual(A, b, f, rows.actf) > tol * (1.0 + b.abs().amax(-1))
+    return qacc, efc_force, nactive, stalled

@@ -1,0 +1,70 @@
+"""The batched uhc_pd control loop: control_freq_inv physics substeps.
+
+Port of smplsim_tpu/physics/substep_lanes.py::uhc_control_lanes on the
+dense mass-matrix path (what SMPLSIM_ABA=0 selects there), batch-first.
+Each substep:
+
+  1. stable-PD torque against the PREVIOUS substep's (M, C);
+  2. FK; 3. CRBA mass matrix and RNEA bias forces;
+  4. constraint rows (limits, floor contacts, self-contacts);
+  5-7. compact active rows, one fused factor+solve of [qfrc | J^T], the
+     contact QP (physics/solver.py);
+  8. semi-implicit Euler, and MuJoCo's mjMAXVAL reset of bad states: a row
+     with a non-finite or >1e10 entry in q, v or qacc restarts from the
+     reset reference (q, v, M, C), drops its warm start and adds no power.
+
+Kernels per substep: two `chol_solve` launches (stable-PD, smooth +
+Delassus) and one `newton_qp` launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinematics, solver
+from smplsim_tpu_torch.physics.control import stable_pd_torque
+
+MJ_MAXVAL = 1e10
+
+
+def _bad(x: torch.Tensor) -> torch.Tensor:
+    return (~torch.isfinite(x) | (x.abs() > MJ_MAXVAL)).any(1)
+
+
+def control_loop(model, q, v, M, C, f_w, target, reset_ref, control_freq_inv: int,
+                 qp_iters=None, K=None, tol=None, keeps=None):
+    """Run the substeps from (q, v) with the stale (M, C) and warm start f_w.
+
+    Returns (q, v, M, C, f_w, power (B,), nactive_max (B,) int32,
+    stalled_any (B,), geom_floor_contact (B,ngeom)) after the last substep."""
+    reset_q, reset_v, M_reset, C_reset = reset_ref
+    B, nv = v.shape
+    dt = model.timestep
+    power = torch.zeros(B, dtype=q.dtype, device=q.device)
+    nact = torch.zeros(B, dtype=torch.int32, device=q.device)
+    stall = torch.zeros(B, dtype=torch.bool, device=q.device)
+    gfc = None
+    z6 = torch.zeros((B, 6), dtype=q.dtype, device=q.device)
+    for _ in range(control_freq_inv):
+        tau = stable_pd_torque(model, M, C, q, v, target)
+        kin = kinematics.fk(model, q)
+        M = dynamics.mass_matrix(model, kin)
+        C = dynamics.bias_forces(model, kin, v)
+        qfrc = torch.cat([z6, model.gear * tau], 1) - model.dof_damping * v - C
+        efc = constraints.make_efc(model, kin, q, v, keeps)
+        qacc, f_w2, nactive, stalled = solver.solve_constraints(
+            model, kin.S, M, qfrc, efc, f_w, qp_iters, K, tol)
+        q2, v2 = integrator.euler_step(q, v, qacc, dt)
+
+        bad = _bad(q) | _bad(v) | _bad(qacc)
+        b1 = bad[:, None]
+        power = power + torch.where(bad, torch.zeros_like(power),
+                                    (tau * v[:, 6:]).abs().sum(1))
+        q = torch.where(b1, reset_q, q2)
+        v = torch.where(b1, reset_v, v2)
+        M = torch.where(b1[..., None], M_reset, M)
+        C = torch.where(b1, C_reset, C)
+        f_w = torch.where(b1, torch.zeros_like(f_w2), f_w2)
+        nact = torch.maximum(nact, nactive)
+        stall = stall | stalled
+        gfc = efc.geom_floor_contact
+    return q, v, M, C, f_w, power, nact, stall, gfc

@@ -1,0 +1,121 @@
+"""Quaternion algebra (wxyz) on tensors with arbitrary leading dims.
+
+Port of the parts of smplsim_tpu/transforms.py that the speed-task slice
+uses: rotation matrices, vector rotation, products, the free-root
+integration, the euler-stack quaternions of the hinges, and the heading
+helpers of the observations.
+"""
+from __future__ import annotations
+
+import torch
+
+_SMPL_BASE_QUAT = (0.5, 0.5, 0.5, 0.5)  # non-upright SMPL base rotation
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """v + 2 qw (qv x v) + 2 qv x (qv x v); broadcasts leading dims."""
+    qw = q[..., :1]
+    qv = q[..., 1:]
+    qv, v = torch.broadcast_tensors(qv, v)
+    uv = torch.linalg.cross(qv, v, dim=-1)
+    uuv = torch.linalg.cross(qv, uv, dim=-1)
+    return v + 2.0 * (qw * uv + uuv)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(...,4) -> (...,3,3), no normalization."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), normalize(axis) * torch.sin(half)], dim=-1)
+
+
+def exp_map_to_quat(e: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Axis-angle vector (...,3) -> quaternion, exact at zero angle."""
+    sq = (e * e).sum(-1, keepdim=True)
+    small = sq <= eps * eps
+    angle = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
+    half = 0.5 * angle
+    k = torch.where(small, torch.full_like(sq, 0.5), torch.sin(half) / angle)
+    cos_half = torch.where(small, torch.ones_like(sq), torch.cos(half))
+    return torch.cat([cos_half, e * k], dim=-1)
+
+
+def quat_integrate(q: torch.Tensor, omega_local: torch.Tensor, dt) -> torch.Tensor:
+    """Advance unit q by the body-frame angular velocity over dt."""
+    return normalize(quat_mul(q, exp_map_to_quat(omega_local * dt)))
+
+
+def euler_xyz_to_quat(e: torch.Tensor) -> torch.Tensor:
+    """Intrinsic XYZ euler angles -> quaternion qx * qy * qz."""
+    c = torch.cos(0.5 * e)
+    s = torch.sin(0.5 * e)
+    cx, cy, cz = c.unbind(-1)
+    sx, sy, sz = s.unbind(-1)
+    return torch.stack([
+        cx * cy * cz - sx * sy * sz,
+        sx * cy * cz + cx * sy * sz,
+        cx * sy * cz - sx * cy * sz,
+        cx * cy * sz + sx * sy * cz,
+    ], dim=-1)
+
+
+def _unit(shape, k: int, like: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros(shape + (3,), dtype=like.dtype, device=like.device)
+    out[..., k] = 1.0
+    return out
+
+
+def calc_heading(q: torch.Tensor) -> torch.Tensor:
+    """Yaw of the rotated x axis."""
+    rot = quat_rotate(q, _unit(q.shape[:-1], 0, q))
+    return torch.atan2(rot[..., 1], rot[..., 0])
+
+
+def calc_heading_quat_inv(q: torch.Tensor) -> torch.Tensor:
+    return quat_from_angle_axis(-calc_heading(q), _unit(q.shape[:-1], 2, q))
+
+
+def remove_base_rot(q: torch.Tensor, humanoid_type: str = "smpl") -> torch.Tensor:
+    """Undo the SMPL rest-pose base rotation."""
+    if humanoid_type in ("smpl", "smplh", "smplx"):
+        base = torch.tensor(_SMPL_BASE_QUAT, dtype=q.dtype, device=q.device)
+        return quat_mul(q, quat_conjugate(base.expand(q.shape)))
+    return q
+
+
+def quat_to_tan_norm(q: torch.Tensor) -> torch.Tensor:
+    """6-D rotation encoding: the rotated x and z axes."""
+    tan = quat_rotate(q, _unit(q.shape[:-1], 0, q))
+    norm = quat_rotate(q, _unit(q.shape[:-1], 2, q))
+    return torch.cat([tan, norm], dim=-1)

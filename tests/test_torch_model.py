@@ -1,0 +1,116 @@
+"""PyTorch port: the model crosses from the JAX package intact, the port
+carries its own copy of the baked asset, and the port never imports JAX."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from smplsim_tpu import transforms as jax_T
+from smplsim_tpu.models import registry as jax_registry
+from smplsim_tpu_torch import transforms as torch_T
+from smplsim_tpu_torch.models import registry as torch_registry
+from smplsim_tpu_torch.models.spec import ARRAY_FIELDS, STATIC_FIELDS
+from tests._torch_port import T, TORCH_DTYPE, rel_err
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
+def test_model_from_dict_matches_every_field(dtype):
+    jm = jax_registry.default_humanoid(dtype=dtype)
+    tm = torch_registry.model_from_dict(jax_registry.model_to_dict(jm),
+                                        dtype=TORCH_DTYPE[dtype], device="cpu")
+    assert set(ARRAY_FIELDS) | set(STATIC_FIELDS) == {f.name for f in dataclasses.fields(tm)}
+    for f in ARRAY_FIELDS:
+        ref = np.asarray(getattr(jm, f))
+        val = getattr(tm, f)
+        assert val.dtype == TORCH_DTYPE[dtype], f
+        assert val.device.type == "cpu"
+        np.testing.assert_array_equal(val.numpy(), ref, err_msg=f)
+    for f in STATIC_FIELDS:
+        assert getattr(tm, f) == getattr(jm, f), f
+    assert (tm.nbody, tm.nq, tm.nv, tm.nu, tm.ngeom) == (jm.nbody, jm.nq, jm.nv, jm.nu, jm.ngeom)
+    assert (tm.nbody, tm.nq, tm.nv, tm.nu, tm.ngeom) == (24, 76, 75, 69, 24)
+
+
+def test_default_humanoid_asset_is_a_byte_identical_copy():
+    rel = os.path.join("models", "assets", "smpl_humanoid_neutral.json.gz")
+    with open(os.path.join(ROOT, "smplsim_tpu", rel), "rb") as f:
+        jax_bytes = f.read()
+    with open(os.path.join(ROOT, "smplsim_tpu_torch", rel), "rb") as f:
+        torch_bytes = f.read()
+    assert jax_bytes == torch_bytes
+    tm = torch_registry.default_humanoid(device="cpu")
+    jm = jax_registry.default_humanoid()
+    np.testing.assert_array_equal(tm.qpos0.numpy(), np.asarray(jm.qpos0))
+
+
+def test_cuda_entry_point_without_a_card_raises():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        torch_registry.default_humanoid()
+
+
+def test_transforms_match():
+    rng = np.random.RandomState(0)
+    q = rng.randn(16, 4)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    q2 = rng.randn(16, 4)
+    v = rng.randn(16, 3)
+    e = rng.randn(16, 3)
+    pairs = [
+        (jax_T.quat_to_matrix(q), torch_T.quat_to_matrix(T(q))),
+        (jax_T.quat_rotate(q, v), torch_T.quat_rotate(T(q), T(v))),
+        (jax_T.quat_mul(q, q2), torch_T.quat_mul(T(q), T(q2))),
+        (jax_T.quat_to_tan_norm(q), torch_T.quat_to_tan_norm(T(q))),
+        (jax_T.remove_base_rot(q), torch_T.remove_base_rot(T(q))),
+        (jax_T.calc_heading_quat_inv(q), torch_T.calc_heading_quat_inv(T(q))),
+        (jax_T.euler_xyz_to_quat(e), torch_T.euler_xyz_to_quat(T(e))),
+        (jax_T.quat_integrate(q, v, 0.01), torch_T.quat_integrate(T(q), T(v), 0.01)),
+        (jax_T.exp_map_to_quat(np.zeros((2, 3))), torch_T.exp_map_to_quat(T(np.zeros((2, 3))))),
+    ]
+    for i, (ref, val) in enumerate(pairs):
+        assert rel_err(ref, val) < 1e-12, i
+
+
+_IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|smplsim_tpu)(\.|\s|$)", re.M)
+
+
+def test_port_sources_import_no_jax():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "smplsim_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        assert not _IMPORT_RE.search(src), path
+
+
+def test_control_step_runs_without_importing_jax():
+    code = (
+        "import sys, torch\n"
+        "from smplsim_tpu_torch.models import registry\n"
+        "from smplsim_tpu_torch.physics import engine\n"
+        "m = registry.default_humanoid(torch.float64, device='cpu')\n"
+        "q = m.qpos0[None].clone(); q[:, 2] = 0.95\n"
+        "st = engine.PhysicsState(q, torch.zeros(1, m.nv, dtype=torch.float64))\n"
+        "st2, info, power, cache = engine.control_step(m, st, torch.zeros(1, m.nu, "
+        "dtype=torch.float64), control_freq_inv=1)\n"
+        "assert torch.isfinite(st2.qpos).all()\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+        "'smplsim_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
