@@ -18,10 +18,28 @@ Phases (any failure exits non-zero):
      env-steps/s;
   4. card vs CPU: 16 envs from a fresh reset, 2 control steps with
      half-scale random actions on the card (kernels) and on the CPU (plain
-     versions); qpos within 5e-3.
+     versions); qpos within 5e-3;
+  5. Kernels C cho_factor_solve (m=1) and D solve_lower (m=32, and m=1
+     forward and transposed) against their plain versions on the card, on
+     inputs of the torque path (B=4096 HumanoidSpeed envs in torque control
+     after 3 control steps): float64 elementwise, float32 by relative
+     residual (and |L L^T - A| for C); times of kernel, plain version and
+     library call; newton_qp timed on the same path's Gram-form systems;
+  6. the torque path: SpeedConfig(control_mode="torque") -> reset(4096) ->
+     16 x step_autoreset with the same action draw as phase 3; launch counts
+     (15 cho_factor_solve + 45 solve_lower + 15 newton_qp and no chol_solve
+     per control step), finite state, env-steps/s;
+  7. card vs CPU on the torque path: 16 envs from a fresh reset, half-scale
+     random actions over 3 substeps, then actions at 0.3% of full scale over
+     2 control steps (with 1000 Nm torque limits at power_scale 10 the
+     float32 loop stays non-chaotic only that long: on the CPU a float32
+     and a float64 run part by 6.8 after 6 substeps at half scale and by
+     0.55 after 27 substeps at 1%); qpos within 5e-3.
 
-The second-to-last line is the `kernels` JSON object, the line before it the
-card's name and power limit; the last line is the result object.
+Phase 3 and phase 6 each set every launch count to 0 just before and read
+them just after. The third-to-last line is the `kernels` JSON object, the
+line after it the card's name and power limit; the last line is the result
+object.
 """
 from __future__ import annotations
 
@@ -37,6 +55,8 @@ B_MAIN = 4096
 STEPS = 16
 CFI = 15
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
+# phase 7: (action scale, substeps per control step, control steps)
+TORQUE_CMP = ((0.5, 3, 1), (0.003, CFI, 2))
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 and float64
 # rates outside the tensor cores
 HBM_BPS = 3.35e12
@@ -83,11 +103,78 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def inf_norm(X):
+    """Per-system max row sum of |X| (B,n,m) -> (B,)."""
+    return X.abs().sum(-1).amax(-1)
+
+
+def rel_residual(H, x, b):
+    """Per-system |H x - b| / (|H| |x| + |b|) in the infinity norms, max;
+    computed in float64 (a system with b = 0 and x = 0 counts 0)."""
+    H, x, b = H.double(), x.double(), b.double()
+    return ((H @ x - b).abs().amax((1, 2))
+            / (inf_norm(H) * x.abs().amax((1, 2)) + b.abs().amax((1, 2))).clamp_min(1e-300)
+            ).amax().item()
+
+
+def rel_diff(k, p):
+    """Per-system max|k - p| / max|p|, max over the systems, in float64."""
+    k, p = k.double(), p.double()
+    return ((k - p).abs().amax((1, 2)) / p.abs().amax((1, 2)).clamp_min(1e-300)).amax().item()
+
+
+def finite_rows(*ts):
+    """(B,) True where every entry of every (B,...) tensor is finite."""
+    return torch.stack([torch.isfinite(t).flatten(1).all(1) for t in ts]).all(0)
+
+
+def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
+    """newton_qp float32: kernel against plain on the systems with finite
+    inputs and plain result (with converged_only, on those where both meet
+    the tolerance), times on all, the bound from the iterations this data
+    needs."""
+    fk = qp.newton_qp(A, b, a, f0, it, tol)
+    fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
+    ok = finite_rows(A, b, f0, fp)
+    check(bool(torch.isfinite(fk[ok]).all()),
+          f"newton_qp float32 finite on the {int(ok.sum())} systems with finite inputs")
+    held = ok
+    if converged_only:
+        tol_sys = tol * (1.0 + b.abs().amax(-1))
+        conv_k, conv_p = qp.kkt_residual(A, b, fk, a) <= tol_sys, qp.kkt_residual(A, b, fp, a) <= tol_sys
+        held = ok & conv_k & conv_p
+        only_p = int((ok & conv_p & ~conv_k).sum())
+        print(f"  newton_qp float32: both meet tol in {int(held.sum())} of {int(ok.sum())} "
+              f"systems; plain only in {only_p}, kernel only in "
+              f"{int((ok & conv_k & ~conv_p).sum())}", flush=True)
+        check(only_p <= int(ok.sum()) // 100,
+              f"newton_qp float32: the kernel misses the tolerance on at most 1% of the "
+              f"systems where the plain version meets it ({only_p})")
+    obj = lambda f: 0.5 * (f * (A @ f[..., None])[..., 0]).sum(-1) - (b * f).sum(-1)
+    orel = ((obj(fk) - obj(fp)).abs() / obj(fp).abs().clamp_min(1e-12))[held].amax().item()
+    check(orel <= 1e-4, f"newton_qp float32 objective within {orel:.3e} <= 1e-4")
+    ms = cuda_ms(lambda: qp.newton_qp(A, b, a, f0, it, tol), 20)
+    plain = cuda_ms(lambda: qp.newton_qp_plain(A, b, a, f0, it, tol), 3)
+    Bn, Kq = b.shape
+    nbytes = 4 * Bn * (Kq * Kq + 4 * Kq)
+    # the work this run's data needs: the Newton iterations each system
+    # ran (masked factor K^3/3, 11 matvecs and 2 triangular solves of
+    # 2K^2 each), plus one KKT matvec per system to stop
+    n_it = int(its.sum())
+    flops = n_it * (Kq ** 3 / 3 + 26 * Kq * Kq) + Bn * 2 * Kq * Kq
+    bms, by = bound_ms(nbytes, flops, A.dtype)
+    return dict(max_abs_err=(fk - fp)[ok].abs().amax().item(),
+                max_rel_err=((fk - fp).abs().amax(1)
+                             / fp.abs().amax(1).clamp_min(1e-30))[ok].amax().item(),
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                iterations_mean=n_it / Bn, iterations_max=int(its.max()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from smplsim_tpu_torch.envs import HumanoidSpeed
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
     from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import _build, linalg, qp
     from smplsim_tpu_torch.physics import (constraints, control, dynamics, engine,
@@ -221,30 +308,19 @@ def main() -> None:
               f"where the plain version meets it ({only_p})")
         if dt != torch.float32:
             continue
-        err = (fk - fp).abs().amax().item()
-        rel = ((fk - fp).abs().amax(1) / fp.abs().amax(1).clamp_min(1e-30)).amax().item()
-        ms = cuda_ms(lambda: qp.newton_qp(A, b, a, f0, it, tol), 20)
-        plain = cuda_ms(lambda: qp.newton_qp_plain(A, b, a, f0, it, tol), 3)
-        Bn, Kq = b.shape
-        nbytes = 4 * Bn * (Kq * Kq + 4 * Kq)
-        # the work this run's data needs: the Newton iterations each system
-        # ran (masked factor K^3/3, 11 matvecs and 2 triangular solves of
-        # 2K^2 each), plus one KKT matvec per system to stop
-        n_it = int(its.sum())
-        flops = n_it * (Kq ** 3 / 3 + 26 * Kq * Kq) + Bn * 2 * Kq * Kq
-        bms, by = bound_ms(nbytes, flops, dt)
-        report["qp"] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
-                            library_ms=None, bound_ms=bms, bound_by=by,
-                            iterations_mean=n_it / Bn, iterations_max=int(its.max()))
-        print(f"  newton_qp f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}), iterations mean {n_it / Bn:.2f} max "
-              f"{int(its.max())}, max|kernel-plain| {err:.3e} (per system, relative to "
-              f"max|plain|: {rel:.3e})", flush=True)
+        report["qp"] = time_qp(qp, A, b, a, f0, it, tol)
+        r = report["qp"]
+        print(f"  newton_qp f32: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), iterations mean "
+              f"{r['iterations_mean']:.2f} max {r['iterations_max']}, max|kernel-plain| "
+              f"{r['max_abs_err']:.3e} (per system, relative to max|plain|: "
+              f"{r['max_rel_err']:.3e})", flush=True)
 
     # ------------------------------------------------------------ 3. main path
     print("phase 3: main path", flush=True)
-    linalg.chol_solve.launches = 0
-    qp.newton_qp.launches = 0
+    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp)
+    for fn in counted:
+        fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     state = env.reset(B_MAIN, gen)
@@ -255,9 +331,11 @@ def main() -> None:
         stalled += state.info["stalled"].float().mean()
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    n_chol, n_qp = linalg.chol_solve.launches, qp.newton_qp.launches
+    n_chol, n_cfs, n_sl, n_qp = (fn.launches for fn in counted)
     check(n_chol == 2 * CFI * STEPS, f"chol_solve launched {n_chol} = 30 x {STEPS} times")
     check(n_qp == CFI * STEPS, f"newton_qp launched {n_qp} = 15 x {STEPS} times")
+    check(n_cfs == 0 and n_sl == 0,
+          f"cho_factor_solve and solve_lower not launched ({n_cfs}, {n_sl})")
     finite = all(bool(torch.isfinite(x).all()) for x in (
         state.phys.qpos, state.phys.qvel, state.obs, state.reward, *state.pd_cache))
     check(finite, "main-path state finite")
@@ -289,23 +367,204 @@ def main() -> None:
     diff = ((st_gpu.qpos.cpu() - st_cpu.qpos).abs() / (1.0 + st_cpu.qpos.abs())).amax().item()
     check(diff <= 5e-3, f"qpos card vs CPU after 2 control steps: {diff:.3e} <= 5e-3")
 
+    # ------------------------------ 5. kernels C and D vs plain, torque path
+    print("phase 5: kernels C and D against their plain versions (torque path)", flush=True)
+    tenv = HumanoidSpeed(model, SpeedConfig(control_mode="torque"), **QP)
+    ps = tenv.config.power_scale
+    tstate = tenv.reset(B_MAIN, gen)
+    for _ in range(3):
+        tstate = tenv.step_autoreset(tstate, action(B_MAIN))
+    q, v = tstate.phys.qpos, tstate.phys.qvel
+    tau = control.torque_ctrl(model, action(B_MAIN), ps)
+    kin = kinematics.fk(model, q)
+    M = dynamics.mass_matrix(model, kin)
+    qfrc = (dynamics.actuator_forces(model, tau) + dynamics.passive_forces(model, v)
+            - dynamics.bias_forces(model, kin, v))[..., None]
+    efc = constraints.make_efc(model, kin, q, v)
+    rows = solver.select_rows(model, kin.S, efc, torch.zeros_like(f_w), K)
+    Jt = rows.J.transpose(1, 2).contiguous()
+    L_p, qacc_s = linalg.cho_factor_solve_plain(M, qfrc)
+    Y = linalg.solve_lower_plain(L_p, Jt)
+    A_g = Y.mT @ Y + torch.diag_embed(rows.R)
+    b_g = torch.where(rows.actf > 0.5, rows.aref - (rows.J @ qacc_s)[..., 0], 0.0)
+    f_g = qp.newton_qp_plain(A_g, b_g, rows.actf, rows.f0, QP["qp_iters"], QP["qp_tol"])
+    qfrc_c = Jt @ f_g[..., None]
+    y_c = linalg.solve_lower_plain(L_p, qfrc_c)
+    # a random torque policy at power_scale 10 saturates every joint: some
+    # envs fly far from the origin, where the float32 mass matrix (about
+    # the world origin) is no longer positive definite, and the loop resets
+    # them. Results are held on the systems whose inputs and plain results
+    # are finite; the times are taken on all of them.
+    print(f"  inputs: M {tuple(M.shape)}, J^T {tuple(Jt.shape)}, |qvel| max "
+          f"{v.abs().max().item():.3e}, active rows per env mean "
+          f"{efc.active.sum(1).float().mean().item():.2f} max {int(efc.active.sum(1).max())}; "
+          f"finite factor in {int(finite_rows(L_p).sum())} envs, finite constraint force in "
+          f"{int(finite_rows(qfrc_c).sum())}", flush=True)
+
+    for dt in (torch.float64, torch.float32):
+        Ad, bd = M.to(dt).contiguous(), qfrc.to(dt).contiguous()
+        Lk, xk = linalg.cho_factor_solve(Ad, bd)
+        torch.cuda.synchronize()
+        Lp, xp = linalg.cho_factor_solve_plain(Ad, bd)
+        ok = finite_rows(Ad, bd, Lp, xp)
+        print(f"  cho_factor_solve {dt}: plain result not finite in {int((~ok).sum())} "
+              f"systems, kernel in {int((~finite_rows(Lk, xk)).sum())}", flush=True)
+        check(bool(torch.isfinite(Lk[ok]).all() and torch.isfinite(xk[ok]).all()),
+              f"cho_factor_solve {dt} finite on the {int(ok.sum())} systems with finite inputs")
+        check(bool((torch.triu(Lk, 1) == 0).all()),
+              f"cho_factor_solve {dt}: L is exactly zero above the diagonal")
+        if dt == torch.float64:
+            rl, rx = rel_diff(Lk[ok], Lp[ok]), rel_diff(xk[ok], xp[ok])
+            check(max(rl, rx) <= 1e-9, f"cho_factor_solve float64 vs plain: L {rl:.3e}, "
+                                       f"x {rx:.3e} <= 1e-9")
+        else:
+            res = rel_residual(Ad[ok], xk[ok], bd[ok])
+            Lk64 = Lk.double()
+            fac = (inf_norm(Lk64 @ Lk64.mT - Ad.double()) / inf_norm(Ad.double()))[ok].amax().item()
+            check(res <= 1e-5 and fac <= 1e-5,
+                  f"cho_factor_solve float32: relative residual {res:.3e}, |L L^T - A| / |A| "
+                  f"{fac:.3e} <= 1e-5")
+            ms = cuda_ms(lambda: linalg.cho_factor_solve(Ad, bd), 20)
+            plain = cuda_ms(lambda: linalg.cho_factor_solve_plain(Ad, bd), 3)
+
+            def library():
+                # the _ex form: the non-definite systems above must not raise
+                Ll = torch.linalg.cholesky_ex(Ad)[0]
+                return Ll, torch.cholesky_solve(bd, Ll)
+            lib = cuda_ms(library, 10)
+            Bn, n, m = bd.shape
+            # lower A read, full L written, b read, x written
+            nbytes = 4 * Bn * (n * (n + 1) / 2 + n * n + 2 * n * m)
+            bms, by = bound_ms(nbytes, Bn * (n ** 3 / 3 + 2 * n * n * m), dt)
+            report["C"] = dict(max_abs_err=max((Lk - Lp)[ok].abs().amax().item(),
+                                               (xk - xp)[ok].abs().amax().item()),
+                               max_rel_err=max(rel_diff(Lk[ok], Lp[ok]), rel_diff(xk[ok], xp[ok])),
+                               max_residual=res, max_factor_residual=fac, ms=ms,
+                               plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            print(f"  cho_factor_solve[m=1] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+
+    d_cases = {f"m={K}": (Jt, False), "m=1": (qfrc_c, False), "m=1,trans": (y_c, True)}
+    for name, (rhs, trans) in d_cases.items():
+        for dt in (torch.float64, torch.float32):
+            Ld, bd = L_p.to(dt).contiguous(), rhs.to(dt).contiguous()
+            yk = linalg.solve_lower(Ld, bd, trans)
+            torch.cuda.synchronize()
+            yp = linalg.solve_lower_any_plain(Ld, bd, trans)
+            ok = finite_rows(Ld, bd, yp)
+            check(bool(torch.isfinite(yk[ok]).all()),
+                  f"solve_lower[{name}] {dt} finite on the {int(ok.sum())} systems with finite "
+                  "inputs")
+            if dt == torch.float64:
+                rel = rel_diff(yk[ok], yp[ok])
+                check(rel <= 1e-9, f"solve_lower[{name}] float64 vs plain: {rel:.3e} <= 1e-9")
+                continue
+            Lt = Ld.mT if trans else Ld
+            res = rel_residual(Lt[ok], yk[ok], bd[ok])
+            check(res <= 1e-5, f"solve_lower[{name}] float32 relative residual {res:.3e} <= 1e-5")
+            ms = cuda_ms(lambda: linalg.solve_lower(Ld, bd, trans), 20)
+            plain = cuda_ms(lambda: linalg.solve_lower_any_plain(Ld, bd, trans), 3)
+            lib = cuda_ms(lambda: torch.linalg.solve_triangular(Lt, bd, upper=trans), 10)
+            Bn, n, m = bd.shape
+            nbytes = 4 * Bn * (n * (n + 1) / 2 + 2 * n * m)
+            bms, by = bound_ms(nbytes, Bn * n * n * m, dt)
+            report[name] = dict(max_abs_err=(yk - yp)[ok].abs().amax().item(),
+                                max_rel_err=rel_diff(yk[ok], yp[ok]), max_residual=res, ms=ms,
+                                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            print(f"  solve_lower[{name}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+
+    # flung envs stall at the iteration cap, where the two summation orders
+    # stop at different iterates: held where both meet the tolerance
+    report["qp_torque"] = time_qp(qp, A_g.contiguous(), b_g.contiguous(), rows.actf,
+                                  rows.f0, QP["qp_iters"], QP["qp_tol"], converged_only=True)
+    r = report["qp_torque"]
+    print(f"  newton_qp f32 (torque path, Gram form): kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, iterations mean "
+          f"{r['iterations_mean']:.2f} max {r['iterations_max']}", flush=True)
+
+    # --------------------------------------------------------- 6. torque path
+    print("phase 6: torque path", flush=True)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tstate = tenv.reset(B_MAIN, gen)
+    overflow_t = stalled_t = 0.0
+    for _ in range(STEPS):
+        tstate = tenv.step_autoreset(tstate, action(B_MAIN))
+        overflow_t += tstate.info["overflow"].float().mean()
+        stalled_t += tstate.info["stalled"].float().mean()
+    torch.cuda.synchronize()
+    elapsed_t = time.time() - t0
+    t_chol, t_cfs, t_sl, t_qp = (fn.launches for fn in counted)
+    check(t_cfs == CFI * STEPS, f"cho_factor_solve launched {t_cfs} = 15 x {STEPS} times")
+    check(t_sl == 3 * CFI * STEPS, f"solve_lower launched {t_sl} = 45 x {STEPS} times")
+    check(t_qp == CFI * STEPS, f"newton_qp launched {t_qp} = 15 x {STEPS} times")
+    check(t_chol == 0, f"chol_solve not launched ({t_chol})")
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        tstate.phys.qpos, tstate.phys.qvel, tstate.obs, tstate.reward))
+    check(finite and tstate.pd_cache is None, "torque-path state finite, no stable-PD cache")
+    check(tstate.obs.shape == (B_MAIN, tenv.obs_size), f"obs shape {tuple(tstate.obs.shape)}")
+    rate_t = B_MAIN * STEPS / elapsed_t
+    print(f"  {STEPS} control steps x {B_MAIN} envs in {elapsed_t:.3f} s: {rate_t:.1f} "
+          f"env-steps/s ({CFI} substeps each) on {card}; uhc_pd path in this call: "
+          f"{rate:.1f} env-steps/s")
+    print(f"  overflow fraction {(overflow_t / STEPS).item():.5f}, stalled fraction "
+          f"{(stalled_t / STEPS).item():.5f}, done at the last step "
+          f"{tstate.done.float().mean().item():.4f}", flush=True)
+
+    # --------------------------------------------- 7. card vs CPU, torque path
+    print("phase 7: card vs CPU on the torque path", flush=True)
+    for scale, cfi, n_steps in TORQUE_CMP:
+        fresh = tenv.reset(n, gen)
+        st_gpu = fresh.phys
+        st_cpu = engine.PhysicsState(st_gpu.qpos.cpu(), st_gpu.qvel.cpu())
+        for k in range(n_steps):
+            act = scale * action(n)
+            st_gpu = engine.control_step(model, st_gpu, act, cfi, control_mode="torque",
+                                         power_scale=ps, **QP)[0]
+            st_cpu = engine.control_step(cpu_model, st_cpu, act.cpu(), cfi,
+                                         control_mode="torque", power_scale=ps, **QP)[0]
+            diff = ((st_gpu.qpos.cpu() - st_cpu.qpos).abs() / (1.0 + st_cpu.qpos.abs())).amax().item()
+            check(diff <= 5e-3, f"qpos card vs CPU, actions at {scale} of full scale, after "
+                                f"{k + 1} x {cfi} substeps: {diff:.3e} <= 5e-3")
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
+    mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
+    d_names = list(d_cases)
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:334", launches=n_chol,
-             launches_per_control_step=per_step(n_chol),
+             replaces="smplsim_tpu/ops/linalg_kernels.py:334", launches=n_chol + t_chol,
+             launches_per_control_step={"uhc_pd": per_step(n_chol), "torque": per_step(t_chol)},
              # the main path calls it once at each shape per substep: the
              # numbers are the mean of one launch of each
-             **{k: (report["m=1,diag"][k] + report["m=33"][k]) / 2
+             **{k: mean(("m=1,diag", "m=33"), k)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              **{k: max(report["m=1,diag"][k], report["m=33"][k])
                 for k in ("max_abs_err", "max_rel_err")},
              bound_by=report["m=33"]["bound_by"],
              shapes={k: report[k] for k in ("m=1,diag", "m=33")}),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
-             replaces="smplsim_tpu/ops/qp_kernel.py:256", launches=n_qp,
-             launches_per_control_step=per_step(n_qp), **report["qp"]),
+             replaces="smplsim_tpu/ops/qp_kernel.py:256", launches=n_qp + t_qp,
+             launches_per_control_step={"uhc_pd": per_step(n_qp), "torque": per_step(t_qp)},
+             **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"]}),
+        dict(name="cho_factor_solve", route="cuda",
+             source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
+             replaces="smplsim_tpu/ops/linalg_kernels.py:104", launches=n_cfs + t_cfs,
+             launches_per_control_step={"uhc_pd": per_step(n_cfs), "torque": per_step(t_cfs)},
+             **report["C"]),
+        dict(name="solve_lower", route="cuda", source="smplsim_tpu_torch/ops/csrc/solve_lower.cu",
+             replaces="smplsim_tpu/ops/linalg_kernels.py:423", launches=n_sl + t_sl,
+             launches_per_control_step={"uhc_pd": per_step(n_sl), "torque": per_step(t_sl)},
+             # the torque path launches it once at each shape per substep:
+             # the numbers are the mean of one launch of each
+             **{k: mean(d_names, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             **{k: max(report[c][k] for c in d_names)
+                for k in ("max_abs_err", "max_rel_err", "max_residual")},
+             bound_by=report[d_names[0]]["bound_by"],
+             shapes={k: report[k] for k in d_names}),
     ]
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))

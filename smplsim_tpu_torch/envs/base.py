@@ -8,8 +8,10 @@ EnvState of batch-first tensors, one row per environment:
 
 Semantics follow the JAX package (and the reference simulator it mirrors):
 
-  * one control step = control_frequency_inv (15) physics substeps at 450 Hz
-    with the stable-PD torque recomputed every substep;
+  * one control step = control_frequency_inv (15) physics substeps at 450 Hz;
+    in the uhc_pd control mode (the default) the stable-PD torque is
+    recomputed every substep, in the torque mode the action scaled by
+    power_scale * torque_lim and clipped is the joint torque of all of them;
   * Default init: qpos = 0 except z = 0.94 and root quat (.5,.5,.5,.5);
   * step ordering: update_task -> cache the root -> physics -> cur_t += 1
     -> obs -> reward -> termination flags;
@@ -37,15 +39,18 @@ from smplsim_tpu_torch.physics.engine import PhysicsState
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
-    """Static env configuration (the JAX package's EnvConfig, uhc_pd control,
-    observation v1, Default init)."""
+    """Static env configuration (the JAX package's EnvConfig: observation
+    v1, Default init). control_mode is "uhc_pd", "torque" or "default"
+    (engine.control_step); power_scale scales the torque mode's action."""
 
     episode_length: int = 300
     sim_timestep_inv: int = 450
     control_frequency_inv: int = 15
+    power_scale: float = 10.0
     root_height_obs: bool = True
     enable_early_termination: bool = True
     clip_actions: bool = True
+    control_mode: str = "uhc_pd"
     contact_bodies: Tuple[str, ...] = ("R_Ankle", "L_Ankle", "R_Toe", "L_Toe")
 
     @property
@@ -65,7 +70,7 @@ class EnvState:
     cur_t: torch.Tensor        # (B,) int32 control steps since reset
     task: Any                  # task state (None for the plain env)
     info: dict                 # power, nactive, overflow, stalled; (B,) each
-    pd_cache: tuple            # (M, C, efc_force) of the last substep
+    pd_cache: tuple | None     # uhc_pd: (M, C, efc_force) of the last substep
     kin: kinematics.Kin        # FK of phys.qpos
     rng: torch.Generator       # drawn from by task samples and resets
 
@@ -167,9 +172,10 @@ class HumanoidEnv:
         return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
 
     def reset(self, batch: int, generator: torch.Generator) -> EnvState:
-        """Fresh states for `batch` envs: task first, then the humanoid; the
-        stable-PD cache is the fresh (M, C) at the init pose (the reference's
-        forward pass after a reset) with a cold constraint warm start."""
+        """Fresh states for `batch` envs: task first, then the humanoid; in
+        uhc_pd mode the stable-PD cache is the fresh (M, C) at the init pose
+        (the reference's forward pass after a reset) with a cold constraint
+        warm start, in the other modes None."""
         m = self.model
         dev = m.device
         cur_t = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -177,15 +183,17 @@ class HumanoidEnv:
         phys = self._init_phys(batch)
         kin = kinematics.fk(m, phys.qpos)
         obs = self.compute_obs(task, phys, kin)
-        M, C = engine.pd_cache(m, phys)
+        cache = None
+        if self.config.control_mode == "uhc_pd":
+            cache = engine.pd_cache(m, phys) + (
+                torch.zeros((batch, constraints.NEFC), dtype=m.dtype, device=dev),)
         zeros = torch.zeros(batch, dtype=m.dtype, device=dev)
         false = torch.zeros(batch, dtype=torch.bool, device=dev)
         return EnvState(
             phys=phys, obs=obs, reward=zeros, terminated=false, truncated=false,
             cur_t=cur_t, task=task,
             info={"power": zeros, "nactive": cur_t, "overflow": false, "stalled": false},
-            pd_cache=(M, C, torch.zeros((batch, constraints.NEFC), dtype=m.dtype, device=dev)),
-            kin=kin, rng=generator)
+            pd_cache=cache, kin=kin, rng=generator)
 
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         cfg = self.config
@@ -199,7 +207,8 @@ class HumanoidEnv:
 
         phys, lean, power, cache = engine.control_step(
             m, state.phys, action, control_freq_inv=cfg.control_frequency_inv,
-            cache=state.pd_cache, reset_ref=self._reset_ref, **self._qp)
+            cache=state.pd_cache, reset_ref=self._reset_ref, **self._qp,
+            control_mode=cfg.control_mode, power_scale=cfg.power_scale)
 
         cur_t = state.cur_t + 1
         kin = kinematics.fk(m, phys.qpos)

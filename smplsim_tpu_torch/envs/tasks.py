@@ -1,5 +1,5 @@
-"""The speed task, batched (port of SpeedConfig, SpeedTask and HumanoidSpeed
-from smplsim_tpu/envs/tasks.py).
+"""The speed task, batched (port of SpeedConfig, SpeedTask and
+HumanoidSpeed in smplsim_tpu/envs/tasks.py).
 
 Run at a commanded speed along +x: reward = exp(-0.25 ((v_x - v*)^2 +
 0.1 v_y^2)) with v the root displacement over the control step divided by

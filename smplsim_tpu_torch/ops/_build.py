@@ -19,7 +19,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "kernels")
-SOURCES = ("chol_solve.cu", "newton_qp.cu")
+SOURCES = ("chol_solve.cu", "newton_qp.cu", "solve_lower.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -31,6 +31,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "chol_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "chol_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cho_factor_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cho_factor_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "solve_lower_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "solve_lower_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "newton_qp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
     "newton_qp_f64": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
 }

@@ -1,18 +1,24 @@
 // Batched fused SPD factor + solve for Hopper (sm_90a):
-//     x = (A + diag(d))^-1 b        A (B,n,n), b (B,n,m), d (B,n) or null.
+//     x = (A + diag(d))^-1 b        A (B,n,n), b (B,n,m), d (B,n) or null,
+// and, through the same device code with the factor stored,
+//     L = chol(A), x = A^-1 b       (cho_factor_solve).
 //
-// Replaces the TPU kernel smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes
-// (body _chol_solve_only_kernel). One thread block owns one system: the lower
+// chol_solve_* replaces the TPU kernel
+// smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes (body
+// _chol_solve_only_kernel); cho_factor_solve_* replaces
+// linalg_kernels.py::chol_solve_batched (body _chol_solve_kernel), which
+// returns the factor as well. One thread block owns one system: the lower
 // triangle of H = A + diag(d) and the right-hand side are copied into shared
 // memory once, factored in place by a right-looking column Cholesky (threads
 // over the trailing triangle), then solved by forward and back substitution
-// (threads over rows x rhs columns). The factor never reaches device memory;
-// each input byte is read once and x is written once.
+// (threads over rows x rhs columns). Each input byte is read once and x is
+// written once; chol_solve keeps the factor on chip, cho_factor_solve writes
+// it out once as a full (n,n) matrix with exact zeros above the diagonal.
 //
 // What bounds it on the H100: at n=75 a system moves 12 KB (m=1) to 31 KB
-// (m=33) in float32 and needs 1.5e5 to 5.1e5 flops, light on both, so the
-// kernel is latency-bound on the 3n block-wide barriers of the factor and
-// the two substitutions. The
+// (m=33) in float32, 34.5 KB with the stored factor, and needs 1.5e5 to
+// 5.1e5 flops, light on both, so the kernel is latency-bound on the 3n
+// block-wide barriers of the factor and the two substitutions. The
 // design keeps all of the recurrence in shared memory so that no barrier
 // waits on device memory; the TPU's panel blocking, rhs chunking and 128-lane
 // padding are VMEM and lane devices and are not carried over.
@@ -21,10 +27,10 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kStoreL>
 __global__ void chol_solve_kernel(const T* __restrict__ A, const T* __restrict__ b,
                                   const T* __restrict__ diag, T* __restrict__ x,
-                                  int n, int m) {
+                                  T* __restrict__ Lout, int n, int m) {
   extern __shared__ unsigned char smem_raw[];
   T* L = reinterpret_cast<T*>(smem_raw);  // (n, n) row-major; lower triangle used
   T* X = L + n * n;                       // (n, m) row-major
@@ -88,18 +94,26 @@ __global__ void chol_solve_kernel(const T* __restrict__ A, const T* __restrict__
 
   T* xs = x + (size_t)sys * n * m;
   for (int idx = tid; idx < n * m; idx += nt) xs[idx] = X[idx];
+  if (kStoreL) {
+    // the upper triangle of the shared tile was never written: store zeros
+    T* Ls = Lout + (size_t)sys * n * n;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int i = idx / n, j = idx - (idx / n) * n;
+      Ls[idx] = j <= i ? L[idx] : T(0);
+    }
+  }
 }
 
-template <typename T>
-int launch(const void* A, const void* b, const void* diag, void* x, int B, int n,
-           int m, void* stream) {
+template <typename T, bool kStoreL>
+int launch(const void* A, const void* b, const void* diag, void* x, void* L, int B,
+           int n, int m, void* stream) {
   const size_t smem = sizeof(T) * ((size_t)n * n + (size_t)n * m);
-  cudaError_t err = cudaFuncSetAttribute(chol_solve_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(chol_solve_kernel<T, kStoreL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (B > 0) {
-    chol_solve_kernel<T><<<B, 256, smem, (cudaStream_t)stream>>>(
-        (const T*)A, (const T*)b, (const T*)diag, (T*)x, n, m);
+    chol_solve_kernel<T, kStoreL><<<B, 256, smem, (cudaStream_t)stream>>>(
+        (const T*)A, (const T*)b, (const T*)diag, (T*)x, (T*)L, n, m);
   }
   return (int)cudaGetLastError();
 }
@@ -109,10 +123,21 @@ int launch(const void* A, const void* b, const void* diag, void* x, int B, int n
 // The launch goes to `stream` on the current device; returns cudaGetLastError().
 extern "C" int chol_solve_f32(const void* A, const void* b, const void* diag, void* x,
                               int B, int n, int m, void* stream) {
-  return launch<float>(A, b, diag, x, B, n, m, stream);
+  return launch<float, false>(A, b, diag, x, nullptr, B, n, m, stream);
 }
 
 extern "C" int chol_solve_f64(const void* A, const void* b, const void* diag, void* x,
                               int B, int n, int m, void* stream) {
-  return launch<double>(A, b, diag, x, B, n, m, stream);
+  return launch<double, false>(A, b, diag, x, nullptr, B, n, m, stream);
+}
+
+// L (B,n,n) and x (B,n,m) with L L^T = A, A x = b; no diagonal shift.
+extern "C" int cho_factor_solve_f32(const void* A, const void* b, void* L, void* x,
+                                    int B, int n, int m, void* stream) {
+  return launch<float, true>(A, b, nullptr, x, L, B, n, m, stream);
+}
+
+extern "C" int cho_factor_solve_f64(const void* A, const void* b, void* L, void* x,
+                                    int B, int n, int m, void* stream) {
+  return launch<double, true>(A, b, nullptr, x, L, B, n, m, stream);
 }

@@ -1,25 +1,42 @@
-"""Batched fused SPD factor + solve: x = (A + diag(d))^-1 b (Kernel A).
+"""Batched dense SPD linear algebra: three hand-written kernels and their
+plain versions.
 
-`chol_solve` replaces the TPU kernel smplsim_tpu/ops/linalg_kernels.py::
-chol_solve_lanes (body _chol_solve_only_kernel). The main path calls it twice
-per substep: stable-PD (m=1, d = dt*kd) and the fused smooth + Delassus
-solve (m = 1 + K, no d).
+  * `chol_solve` (Kernel A): x = (A + diag(d))^-1 b, replacing the TPU
+    kernel smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes (body
+    _chol_solve_only_kernel). The uhc_pd path calls it twice per substep:
+    stable-PD (m=1, d = dt*kd) and the fused smooth + Delassus solve
+    (m = 1 + K, no d).
+  * `cho_factor_solve` (Kernel C): (L, x) with L L^T = A and A x = b,
+    replacing linalg_kernels.py::chol_solve_batched (body
+    _chol_solve_kernel), the vmap rule of smplsim_tpu/physics/linalg.py::
+    cho_factor_solve. The per-env path calls it once per substep (smooth
+    dynamics, m=1).
+  * `solve_lower` (Kernel D): L x = b or L^T x = b, replacing
+    linalg_kernels.py::solve_lower_batched (body _solve_lower_kernel), the
+    vmap rule of physics/linalg.py::tri_solve_lower (one launch) and
+    cho_solve (two). The per-env path calls it three times per substep: the
+    Gram-form Delassus factor Y = L^-1 J^T (m=K) and the constraint
+    acceleration (m=1, twice).
 
-On a CUDA tensor it launches the hand-written kernel in csrc/chol_solve.cu:
-one thread block per system, the lower triangle of H = A + diag(d) and the
-right-hand side in shared memory, a right-looking column Cholesky, then
-forward and back substitution; the factor never reaches device memory.
-What bounds it on the H100: at n=75 a system moves 12 KB (m=1) to 31 KB
-(m=33) and needs 1.5e5 to 5.1e5 flops, so the byte bound is 0.015 / 0.038
-ms for 4096 systems in float32, while the column recurrence is 3n = 225
-dependent steps with a block barrier each: the kernel is bound by that
-barrier chain, not by bytes or flops. The design answers with shared-memory residency (no step
-waits on device memory) and many resident blocks per SM to hide the
-barriers; PERF.md has its measured time against the bound.
+On a CUDA tensor each wrapper launches its kernel, built from csrc/
+(chol_solve.cu holds A and C, which share device code through a template
+flag that stores the factor; solve_lower.cu holds D): one thread block per
+system, the lower triangle and the right-hand side in shared memory, the
+column recurrences with a block barrier between columns. What bounds them
+on the H100: at n=75 a system moves 12 KB (m=1) to 35 KB (C with its
+stored factor) and needs 1.5e5 to 5.1e5 flops, so for 4096 systems in
+float32 the byte bound is 0.015 to 0.042 ms, while the recurrences are n to
+3n dependent steps with a block barrier each: the kernels are bound by that
+barrier chain, not by bytes or flops. The design answers with
+shared-memory residency (no step waits on device memory) and many resident
+blocks per SM to hide the barriers; PERF.md has their measured times
+against the bounds.
 
-On a CPU tensor it runs `chol_solve_plain`, the column recurrences of
-smplsim_tpu/physics/linalg.py::_cholesky_ref and _cho_solve_ref, batched.
-Both read only the lower triangle of A.
+On a CPU tensor each wrapper runs its plain version: the column recurrences
+of smplsim_tpu/physics/linalg.py::_cholesky_ref, solve_lower, solve_lower_t
+and _cho_solve_ref, batched. All of them read only the lower triangle.
+The kernels take contiguous tensors and raise on any other layout: a caller
+with a transposed view makes the copy itself (`.contiguous()`).
 """
 from __future__ import annotations
 
@@ -74,30 +91,51 @@ def chol_solve_plain(A, b, diag=None):
     return solve_lower_t_plain(L, solve_lower_plain(L, b))
 
 
-def _check(A, b, diag):
+def cho_factor_solve_plain(A, b):
+    """Plain PyTorch version of `cho_factor_solve`."""
+    L = cholesky_plain(A)
+    return L, solve_lower_t_plain(L, solve_lower_plain(L, b))
+
+
+def solve_lower_any_plain(L, b, trans: bool = False):
+    """Plain PyTorch version of `solve_lower`."""
+    return solve_lower_t_plain(L, b) if trans else solve_lower_plain(L, b)
+
+
+def _check(name, A, b, diag=None):
+    """Shapes, types and devices of a (B,n,n) matrix, a (B,n,m) right-hand
+    side and an optional (B,n) diagonal; on a CUDA device also contiguity.
+    Returns True where the kernel is to run, False on the CPU."""
     if A.dim() != 3 or b.dim() != 3 or A.shape[1] != A.shape[2] \
             or b.shape[:2] != A.shape[:2]:
-        raise ValueError(f"chol_solve: A {tuple(A.shape)} and b {tuple(b.shape)} "
+        raise ValueError(f"{name}: A {tuple(A.shape)} and b {tuple(b.shape)} "
                          "must be (B,n,n) and (B,n,m)")
     if diag is not None and diag.shape != A.shape[:2]:
-        raise ValueError(f"chol_solve: diag {tuple(diag.shape)} must be (B,n)")
-    for t in (A, b) + (() if diag is None else (diag,)):
+        raise ValueError(f"{name}: diag {tuple(diag.shape)} must be (B,n)")
+    ts = (A, b) + (() if diag is None else (diag,))
+    for t in ts:
         if t.dtype not in (torch.float32, torch.float64) or t.dtype != A.dtype:
-            raise TypeError("chol_solve: all inputs must share float32 or float64")
+            raise TypeError(f"{name}: all inputs must share float32 or float64")
         if t.device != A.device:
-            raise ValueError("chol_solve: all inputs must be on one device")
+            raise ValueError(f"{name}: all inputs must be on one device")
+    if A.device.type == "cpu":
+        return False
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {A.device}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return True
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def chol_solve(A: torch.Tensor, b: torch.Tensor,
                diag: torch.Tensor | None = None) -> torch.Tensor:
     """x (B,n,m) with (A + diag(d)) x = b for SPD A (B,n,n), b (B,n,m)."""
-    _check(A, b, diag)
-    if A.device.type == "cpu":
+    if not _check("chol_solve", A, b, diag):
         return chol_solve_plain(A, b, diag)
-    if A.device.type != "cuda":
-        raise ValueError(f"chol_solve: unsupported device {A.device}")
-    if not all(t.is_contiguous() for t in (A, b) + (() if diag is None else (diag,))):
-        raise ValueError("chol_solve: the kernel takes contiguous tensors")
     Bn, n, m = b.shape
     if A.element_size() * n * (n + m) > _SMEM_MAX:
         raise ValueError(f"chol_solve: n={n}, m={m} exceed a block's shared memory")
@@ -106,10 +144,67 @@ def chol_solve(A: torch.Tensor, b: torch.Tensor,
     fn = _build.kernel("chol_solve.cu", name)
     with torch.cuda.device(A.device):
         status = fn(A.data_ptr(), b.data_ptr(), None if diag is None else diag.data_ptr(),
-                    x.data_ptr(), Bn, n, m, torch.cuda.current_stream(A.device).cuda_stream)
+                    x.data_ptr(), Bn, n, m, _stream(A))
     _build.check(status, name)
     chol_solve.launches += 1
     return x
 
 
 chol_solve.launches = 0
+
+
+def cho_factor_solve(A: torch.Tensor, b: torch.Tensor):
+    """(L (B,n,n), x (B,n,m)) for SPD A (B,n,n), b (B,n,m): L is the lower
+    Cholesky factor with exact zeros above the diagonal, A x = b."""
+    if not _check("cho_factor_solve", A, b):
+        return cho_factor_solve_plain(A, b)
+    Bn, n, m = b.shape
+    if A.element_size() * n * (n + m) > _SMEM_MAX:
+        raise ValueError(f"cho_factor_solve: n={n}, m={m} exceed a block's shared memory")
+    L = torch.empty_like(A)
+    x = torch.empty_like(b)
+    name = "cho_factor_solve_f32" if A.dtype == torch.float32 else "cho_factor_solve_f64"
+    fn = _build.kernel("chol_solve.cu", name)
+    with torch.cuda.device(A.device):
+        status = fn(A.data_ptr(), b.data_ptr(), L.data_ptr(), x.data_ptr(), Bn, n, m,
+                    _stream(A))
+    _build.check(status, name)
+    cho_factor_solve.launches += 1
+    return L, x
+
+
+cho_factor_solve.launches = 0
+
+
+def solve_lower(L: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """x (B,n,m) with L x = b, or L^T x = b if `trans`; L (B,n,n) lower
+    (its upper triangle is not read), b (B,n,m)."""
+    if not _check("solve_lower", L, b):
+        return solve_lower_any_plain(L, b, trans)
+    Bn, n, m = b.shape
+    if L.element_size() * (n * (n + 1) // 2 + n * m) > _SMEM_MAX:
+        raise ValueError(f"solve_lower: n={n}, m={m} exceed a block's shared memory")
+    x = torch.empty_like(b)
+    name = "solve_lower_f32" if L.dtype == torch.float32 else "solve_lower_f64"
+    fn = _build.kernel("solve_lower.cu", name)
+    with torch.cuda.device(L.device):
+        status = fn(L.data_ptr(), b.data_ptr(), x.data_ptr(), Bn, n, m, int(bool(trans)),
+                    _stream(L))
+    _build.check(status, name)
+    solve_lower.launches += 1
+    return x
+
+
+solve_lower.launches = 0
+
+
+def tri_solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Forward substitution L x = b: one `solve_lower` launch
+    (smplsim_tpu/physics/linalg.py::tri_solve_lower)."""
+    return solve_lower(L, b)
+
+
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L L^T x = b given the lower factor L: two `solve_lower`
+    launches (smplsim_tpu/physics/linalg.py::cho_solve)."""
+    return solve_lower(L, solve_lower(L, b), trans=True)

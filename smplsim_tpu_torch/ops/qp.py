@@ -25,6 +25,17 @@ is touched once on entry and once on exit) and lets converged systems leave
 at once; PERF.md has its measured time against the bound. On a CPU tensor
 it runs `newton_qp_plain`.
 
+The same call, on (B,K,K) batch-first systems, is also the port of the
+batch-major entries the per-env solver reaches under vmap
+(qp_kernel.py::_newton_qp_pallas, _newton_qp_twophase, _newton_qp_chunked):
+one launch with the full iteration budget for every system. Twophase's
+straggler pass and chunked's outer loop exist because a TPU block of 128
+lanes exits only when all of them converge; here each system exits on its
+own, so the result is the one of vmap(newton_qp_reference), which the JAX
+package computes off the TPU. Twophase's truncation of the systems beyond
+its straggler budget at their phase-1 forces is a TPU departure and is not
+reproduced: SMPLSIM_QP_PHASE1 and SMPLSIM_QP_STRAGGLER_DIV are not read.
+
 Knobs (the JAX package's, same defaults): SMPLSIM_QP_ITERS is the iteration
 cap, SMPLSIM_QP_TOL the float32 KKT tolerance relative to 1 + max|b|;
 float64 uses 1e-12.

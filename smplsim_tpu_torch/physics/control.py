@@ -1,4 +1,7 @@
-"""Stable-PD control, batched (port of smplsim_tpu/physics/control.py).
+"""Stable-PD and torque control, batched (port of
+smplsim_tpu/physics/control.py).
+
+Stable-PD (the uhc_pd control mode):
 
     qpos_err = [0_6; q + dt qv - q*]
     qacc = (M + dt diag(Kd))^-1 (-C - Kp qpos_err - Kd qv)
@@ -6,6 +9,9 @@
 
 M includes armature; M and C are the PREVIOUS substep's, as MuJoCo's
 mjData.qM and qfrc_bias are when the reference controller reads them.
+
+Torque (the torque control mode, the reference's SimpleTorqueController):
+tau = clip(action * power_scale * torque_lim, +-torque_lim).
 """
 from __future__ import annotations
 
@@ -38,4 +44,12 @@ def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
     rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
     qacc = linalg.chol_solve(M_prev, rhs, diag)[..., 0]
     tau = -model.jkp * qerr - model.jkd * (qvel[:, 6:] + qacc[:, 6:] * model.timestep)
+    return torch.clamp(tau, -model.torque_lim, model.torque_lim)
+
+
+def torque_ctrl(model: RobotModel, action: torch.Tensor,
+                power_scale: float = 1.0) -> torch.Tensor:
+    """tau (B,nu): the action scaled by power_scale * torque_lim, clipped to
+    torque_lim."""
+    tau = action * power_scale * model.torque_lim
     return torch.clamp(tau, -model.torque_lim, model.torque_lim)

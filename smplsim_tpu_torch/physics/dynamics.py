@@ -10,12 +10,19 @@ dynamics_lanes.py):
 with IC the composite spatial inertias and a_b the velocity-product
 accelerations; the tree recursions are dense products with the static masks
 of physics/topology.py.
+
+`smooth_dynamics` (the per-env path's unconstrained step,
+smplsim_tpu/physics/dynamics.py::smooth_dynamics) factors M and solves for
+the smooth acceleration in one `cho_factor_solve` launch.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.ops import linalg
 from smplsim_tpu_torch.physics import algebra
 from smplsim_tpu_torch.physics.kinematics import Kin
 from smplsim_tpu_torch.physics.topology import mask_tensor
@@ -67,3 +74,33 @@ def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor
 def body_twists(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
     """(B,J,6) body twists [omega; v_O] about the world origin."""
     return _mask(model, "body_dof", kin.S) @ (kin.S * qvel[..., None])
+
+
+def passive_forces(model: RobotModel, qvel: torch.Tensor) -> torch.Tensor:
+    """(B,nv) passive joint forces (damping; SMPL models have no springs)."""
+    return -model.dof_damping * qvel
+
+
+def actuator_forces(model: RobotModel, ctrl: torch.Tensor) -> torch.Tensor:
+    """(B,nv) generalized forces of the motors: gear * ctrl on each hinge."""
+    z6 = torch.zeros((ctrl.shape[0], 6), dtype=ctrl.dtype, device=ctrl.device)
+    return torch.cat([z6, model.gear * ctrl], 1)
+
+
+@dataclasses.dataclass
+class Smooth:
+    M: torch.Tensor            # (B,nv,nv)
+    chol: torch.Tensor         # (B,nv,nv) lower Cholesky factor of M, zeros above
+    qfrc_smooth: torch.Tensor  # (B,nv) total smooth force
+    qacc_smooth: torch.Tensor  # (B,nv) unconstrained acceleration
+
+
+def smooth_dynamics(model: RobotModel, kin: Kin, qvel: torch.Tensor,
+                    ctrl: torch.Tensor) -> Smooth:
+    """M, its factor, the smooth force under actuation ctrl (B,nu) and the
+    unconstrained acceleration M^-1 qfrc_smooth."""
+    M = mass_matrix(model, kin)
+    qfrc = (actuator_forces(model, ctrl) + passive_forces(model, qvel)
+            - bias_forces(model, kin, qvel))
+    chol, qacc = linalg.cho_factor_solve(M, qfrc[..., None])
+    return Smooth(M=M, chol=chol, qfrc_smooth=qfrc, qacc_smooth=qacc[..., 0])

@@ -8,6 +8,15 @@ both the smooth acceleration and W = M^-1 J^T from the right-hand side
 [qfrc | J^T]; the Delassus system A = J W + diag(R) goes to the contact QP;
 the compact forces scatter back to the full row layout.
 
+`solve_constraints_gram` is the per-env form
+(smplsim_tpu/physics/solver.py::solve_constraints, which the torque and
+direct control modes run): M is factored once upstream (the smooth
+dynamics' L), the Delassus matrix comes in Gram form, Y = L^-1 J^T and
+A = Y^T Y + diag(R) (one triangular solve over K columns and a matrix
+product), and the constraint acceleration is a second solve with L. The
+Gram form and the fused form above agree only to rounding, so each is held
+to its own JAX counterpart.
+
 Knob (the JAX package's, same default): SMPLSIM_QP_ROWS is K before the
 min with NEFC.
 """
@@ -20,6 +29,7 @@ import torch
 
 from smplsim_tpu_torch.ops import linalg, qp
 from smplsim_tpu_torch.physics.constraints import EFC, MAX_LIMITS, NEFC
+from smplsim_tpu_torch.physics.dynamics import Smooth
 from smplsim_tpu_torch.physics.topology import mask_tensor
 
 COMPACT_ROWS = int(os.environ.get("SMPLSIM_QP_ROWS", 64))
@@ -108,3 +118,44 @@ def solve_constraints(model, S, M, qfrc, efc: EFC, f_warm, iters=None, K=None, t
     nactive = efc.active.sum(1, dtype=torch.int32)
     stalled = qp.kkt_residual(A, b, f, rows.actf) > tol * (1.0 + b.abs().amax(-1))
     return qacc, efc_force, nactive, stalled
+
+
+@dataclasses.dataclass
+class ConstraintSolution:
+    qacc: torch.Tensor             # (B,nv)
+    efc_force: torch.Tensor        # (B,NEFC) in the full row layout
+    qfrc_constraint: torch.Tensor  # (B,nv)
+    nactive: torch.Tensor          # (B,) int32 active rows
+    overflow: torch.Tensor         # (B,) nactive > K: the later rows were left out
+    stalled: torch.Tensor          # (B,) the QP stopped short of its tolerance
+
+
+def solve_constraints_gram(model, S, smooth: Smooth, efc: EFC, f_warm=None,
+                           iters=None, K=None, tol=None) -> ConstraintSolution:
+    """S (B,nv,6) dof subspaces; smooth from `dynamics.smooth_dynamics`;
+    f_warm (B,NEFC) previous forces in the full row layout, None for a cold
+    start. Kernels: three `solve_lower` launches (m=K, then m=1 twice) and
+    one `newton_qp` launch."""
+    K = min(COMPACT_ROWS, NEFC) if K is None else K
+    tol = qp.tol_for(S.dtype) if tol is None else tol
+    B = S.shape[0]
+    if f_warm is None:
+        f_warm = torch.zeros((B, NEFC), dtype=S.dtype, device=S.device)
+
+    rows = select_rows(model, S, efc, f_warm, K)
+    active = rows.actf > 0.5
+    # the kernels take contiguous tensors: J^T is copied out of the row layout
+    Jt = rows.J.transpose(1, 2).contiguous()                          # (B,nv,K)
+    Y = linalg.tri_solve_lower(smooth.chol, Jt)
+    A = Y.transpose(1, 2) @ Y + torch.diag_embed(rows.R)
+    b = rows.aref - (rows.J @ smooth.qacc_smooth[..., None])[..., 0]
+    b = torch.where(active, b, torch.zeros_like(b))
+    f = qp.newton_qp(A, b, rows.actf, rows.f0, iters, tol)
+
+    qfrc = Jt @ f[..., None]                                          # (B,nv,1)
+    qacc = smooth.qacc_smooth + linalg.cho_solve(smooth.chol, qfrc)[..., 0]
+    efc_force = torch.zeros((B, NEFC), dtype=S.dtype, device=S.device).scatter(1, rows.idx, f)
+    nactive = efc.active.sum(1, dtype=torch.int32)
+    stalled = qp.kkt_residual(A, b, f, rows.actf) > tol * (1.0 + b.abs().amax(-1))
+    return ConstraintSolution(qacc=qacc, efc_force=efc_force, qfrc_constraint=qfrc[..., 0],
+                              nactive=nactive, overflow=nactive > K, stalled=stalled)

@@ -105,6 +105,9 @@ def test_control_step_runs_without_importing_jax():
         "st2, info, power, cache = engine.control_step(m, st, torch.zeros(1, m.nu, "
         "dtype=torch.float64), control_freq_inv=1)\n"
         "assert torch.isfinite(st2.qpos).all()\n"
+        "st3, info, power, cache = engine.control_step(m, st, torch.full((1, m.nu), 0.01, "
+        "dtype=torch.float64), control_freq_inv=1, control_mode='torque', power_scale=10.0)\n"
+        "assert torch.isfinite(st3.qpos).all() and cache is None\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'smplsim_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,14 +1,15 @@
 """Where a control step of the PyTorch/CUDA port spends its time on the GPU.
 
     python3 tools/profile_torch_step.py [--batch 4096] [--steps 2]
+                                        [--control-mode uhc_pd|torque]
 
 Runs HumanoidSpeed at the main-path operating point (float32, 15 substeps,
-SMPLSIM_QP_ITERS=16, SMPLSIM_QP_TOL=1e-4, SMPLSIM_QP_ROWS=32), warms up
-three control steps, times `--steps` step_autoreset calls, then records as
-many again with torch.profiler. Prints the wall time per control step, the
-device's busy time in it (sum of kernel and copy times) and so its idle
-share, the device time of the two hand-written kernels, and the top device
-ops.
+SMPLSIM_QP_ITERS=16, SMPLSIM_QP_TOL=1e-4, SMPLSIM_QP_ROWS=32) in the given
+control mode (uniform random actions in [-1, 1]), warms up three control
+steps, times `--steps` step_autoreset calls, then records as many again
+with torch.profiler. Prints the wall time per control step, the device's
+busy time in it (sum of kernel and copy times) and so its idle share, the
+device time of the hand-written kernels, and the top device ops.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -31,10 +32,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--control-mode", default="uhc_pd", choices=("uhc_pd", "torque"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("a CUDA card is needed")
-    from smplsim_tpu_torch.envs import HumanoidSpeed
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
     from smplsim_tpu_torch.models import registry
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -42,7 +44,7 @@ def main() -> None:
                           timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
     model = registry.default_humanoid(torch.float32)
-    env = HumanoidSpeed(model, **QP)
+    env = HumanoidSpeed(model, SpeedConfig(control_mode=args.control_mode), **QP)
     gen = torch.Generator(device=dev).manual_seed(0)
     act = lambda: torch.rand(args.batch, model.nu, generator=gen, device=dev) * 2 - 1
     state = env.reset(args.batch, gen)
@@ -67,12 +69,13 @@ def main() -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
     busy = sum(dev_us(e) for e in events) / 1e3 / args.steps
-    print(f"card: {card}; batch {args.batch}, {args.steps} control steps profiled")
+    print(f"card: {card}; {args.control_mode} control, batch {args.batch}, {args.steps} "
+          "control steps profiled")
     print(f"wall per control step {wall_plain * 1e3:.1f} ms ({wall * 1e3:.1f} ms with the "
           f"profiler on); device busy {busy:.1f} ms: idle share "
           f"{max(0.0, 1 - busy / (wall_plain * 1e3)):.3f} of the unprofiled step")
     kern = {k: sum(dev_us(e) for e in events if k in e.key) / 1e3 / args.steps
-            for k in ("chol_solve_kernel", "newton_qp_kernel")}
+            for k in ("chol_solve_kernel", "solve_lower_kernel", "newton_qp_kernel")}
     print("hand-written kernels, device ms per control step: "
           + ", ".join(f"{k} {v:.2f}" for k, v in kern.items()))
     top = sorted(events, key=dev_us, reverse=True)[:25]
