@@ -34,9 +34,32 @@ Phases (any failure exits non-zero):
      2 control steps (with 1000 Nm torque limits at power_scale 10 the
      float32 loop stays non-chaotic only that long: on the CPU a float32
      and a float64 run part by 6.8 after 6 substeps at half scale and by
-     0.55 after 27 substeps at 1%); qpos within 5e-3.
+     0.55 after 27 substeps at 1%); qpos within 5e-3;
+  8. Kernel E cholesky against its plain version on the card, on the masked
+     K x K systems H = A o (a a^T) + diag(1 - a) that the contact QP's
+     implicit-function derivative factors on phase 9's path (the first
+     substep at its 4 trajectory points, K=32, each system replicated 220
+     times as the Jacobian batch holds it): float64 elementwise and float32
+     by |L L^T - H| / |H|, exact zeros above the diagonal in both; times of
+     kernel, plain version and torch.linalg.cholesky_ex; Kernel D at
+     m = n = 75 on the same batch (the factors of M at the points), the
+     shape of the cholesky rule's L^-1 dA solves, the same way;
+  9. the differentiable path: one Jacobian evaluation (control.jacobians:
+     one forward-AD pass over the replicated batch) of the uhc_pd
+     control_step at 4 trajectory points, nq + nv + nu = 220 replicas each
+     (880 systems), 15 substeps, at the bench operating point; launch counts
+     per evaluation (30 cho_factor_solve, 240 solve_lower, 15 newton_qp, 15
+     cholesky and no chol_solve), finite Jacobians; the wall time of a warm
+     evaluation beside one forward-AD pass over the 4 points alone; then
+     card vs CPU in float64 (2 substeps, an air and a contact state, actions
+     at 10% of full scale): Jacobians within 1e-6 relative, with the QP
+     active sets of both devices' reference loops equal;
+ 10. ilqr_plan on the card from HumanoidSpeed's reset state: 4 control
+     steps, 2 iterations, the root-velocity cost of tests/test_control.py;
+     the final cost finite and not above the initial one; wall seconds per
+     iteration.
 
-Phase 3 and phase 6 each set every launch count to 0 just before and read
+Phases 3, 6 and 9 each set every launch count to 0 just before and read
 them just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
@@ -44,12 +67,14 @@ object.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 import torch
+from torch.autograd import forward_ad
 
 B_MAIN = 4096
 STEPS = 16
@@ -57,6 +82,11 @@ CFI = 15
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
 # phase 7: (action scale, substeps per control step, control steps)
 TORQUE_CMP = ((0.5, 3, 1), (0.003, CFI, 2))
+# phases 8-10: trajectory points (= iLQR horizon), substeps of the float64
+# card-vs-CPU Jacobians, iLQR iterations
+N_POINTS = 4
+CMP_CFI = 2
+ILQR_ITERS = 2
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 and float64
 # rates outside the tensor cores
 HBM_BPS = 3.35e12
@@ -128,6 +158,21 @@ def finite_rows(*ts):
     return torch.stack([torch.isfinite(t).flatten(1).all(1) for t in ts]).all(0)
 
 
+def cmp_points(m):
+    """(x (2,nq+nv), u (2,nu)) float64 on the CPU: an air state (standing
+    height, small joint noise) and a contact state (lying at the floor), as
+    the parity tests draw them, with actions at 10% of full scale."""
+    g = torch.Generator().manual_seed(7)
+    randn = lambda *shape: torch.randn(*shape, generator=g, dtype=torch.float64)
+    qpos = m.qpos0[None].repeat(2, 1)
+    qpos[0, 2] = 0.95
+    qpos[1, 2] = 0.17
+    qpos[1, 3:7] = torch.tensor([0.7071068, 0.7071068, 0.0, 0.0], dtype=torch.float64)
+    qpos[:, 7:] += 0.1 * randn(2, m.nv - 6)
+    u = 0.1 * (2.0 * torch.rand(2, m.nu, generator=g, dtype=torch.float64) - 1.0)
+    return torch.cat([qpos, 0.2 * randn(2, m.nv)], 1), u
+
+
 def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
     """newton_qp float32: kernel against plain on the systems with finite
     inputs and plain result (with converged_only, on those where both meet
@@ -174,11 +219,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from smplsim_tpu_torch.control import ILQRConfig, ilqr_plan, jacobians
     from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
     from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import _build, linalg, qp
     from smplsim_tpu_torch.physics import (constraints, control, dynamics, engine,
-                                           kinematics, solver)
+                                           kinematics, solver, substep)
 
     # ------------------------------------------------------------ 1. environment
     t_start = time.time()
@@ -318,7 +364,8 @@ def main() -> None:
 
     # ------------------------------------------------------------ 3. main path
     print("phase 3: main path", flush=True)
-    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp)
+    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp,
+               linalg.cholesky)
     for fn in counted:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -331,11 +378,11 @@ def main() -> None:
         stalled += state.info["stalled"].float().mean()
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    n_chol, n_cfs, n_sl, n_qp = (fn.launches for fn in counted)
+    n_chol, n_cfs, n_sl, n_qp, n_e = (fn.launches for fn in counted)
     check(n_chol == 2 * CFI * STEPS, f"chol_solve launched {n_chol} = 30 x {STEPS} times")
     check(n_qp == CFI * STEPS, f"newton_qp launched {n_qp} = 15 x {STEPS} times")
-    check(n_cfs == 0 and n_sl == 0,
-          f"cho_factor_solve and solve_lower not launched ({n_cfs}, {n_sl})")
+    check(n_cfs == 0 and n_sl == 0 and n_e == 0,
+          f"cho_factor_solve, solve_lower and cholesky not launched ({n_cfs}, {n_sl}, {n_e})")
     finite = all(bool(torch.isfinite(x).all()) for x in (
         state.phys.qpos, state.phys.qvel, state.obs, state.reward, *state.pd_cache))
     check(finite, "main-path state finite")
@@ -497,11 +544,11 @@ def main() -> None:
         stalled_t += tstate.info["stalled"].float().mean()
     torch.cuda.synchronize()
     elapsed_t = time.time() - t0
-    t_chol, t_cfs, t_sl, t_qp = (fn.launches for fn in counted)
+    t_chol, t_cfs, t_sl, t_qp, t_e = (fn.launches for fn in counted)
     check(t_cfs == CFI * STEPS, f"cho_factor_solve launched {t_cfs} = 15 x {STEPS} times")
     check(t_sl == 3 * CFI * STEPS, f"solve_lower launched {t_sl} = 45 x {STEPS} times")
     check(t_qp == CFI * STEPS, f"newton_qp launched {t_qp} = 15 x {STEPS} times")
-    check(t_chol == 0, f"chol_solve not launched ({t_chol})")
+    check(t_chol == 0 and t_e == 0, f"chol_solve and cholesky not launched ({t_chol}, {t_e})")
     finite = all(bool(torch.isfinite(x).all()) for x in (
         tstate.phys.qpos, tstate.phys.qvel, tstate.obs, tstate.reward))
     check(finite and tstate.pd_cache is None, "torque-path state finite, no stable-PD cache")
@@ -530,14 +577,202 @@ def main() -> None:
             check(diff <= 5e-3, f"qpos card vs CPU, actions at {scale} of full scale, after "
                                 f"{k + 1} x {cfi} substeps: {diff:.3e} <= 5e-3")
 
+    # ---------------- trajectory points of phases 8-10: one env from a reset
+    # state, 3 control steps at 10% of full-scale actions
+    nq = model.nq
+
+    def dyn(x, u):
+        st = engine.control_step(model, engine.PhysicsState(x[:, :nq], x[:, nq:]), u, CFI,
+                                 **QP)[0]
+        return torch.cat([st.qpos, st.qvel], 1)
+
+    st0 = env.reset(1, gen).phys
+    x_pts = [torch.cat([st0.qpos, st0.qvel], 1)]
+    u_pts = 0.1 * action(N_POINTS)
+    for t in range(N_POINTS - 1):
+        x_pts.append(dyn(x_pts[-1], u_pts[t:t + 1]))
+    x_pts = torch.cat(x_pts)
+    reps = model.nq + model.nv + model.nu
+
+    # ------------------------------------ 8. Kernel E vs plain, QP derivative
+    print("phase 8: kernel E cholesky against its plain version (QP derivative)", flush=True)
+    st8 = engine.PhysicsState(x_pts[:, :nq].contiguous(), x_pts[:, nq:].contiguous())
+    M8, C8 = engine.pd_cache(model, st8)
+    tau = control.stable_pd_torque_ref(model, M8, C8, st8.qpos, st8.qvel,
+                                       control.pd_target_from_action(model, u_pts))
+    kin = kinematics.fk(model, st8.qpos)
+    sm8 = dynamics.smooth_dynamics(model, kin, st8.qvel, tau)
+    efc = constraints.make_efc(model, kin, st8.qpos, st8.qvel)
+    rows = solver.select_rows(model, kin.S, efc, torch.zeros(N_POINTS, constraints.NEFC,
+                                                             device=dev), K)
+    Y = linalg.tri_solve_lower(sm8.chol, rows.J.transpose(1, 2).contiguous())
+    A8 = Y.mT @ Y + torch.diag_embed(rows.R)
+    b8 = torch.where(rows.actf > 0.5,
+                     rows.aref - (rows.J @ sm8.qacc_smooth[..., None])[..., 0], 0.0)
+    f8 = qp.newton_qp(A8, b8, rows.actf, rows.f0, QP["qp_iters"], QP["qp_tol"])
+    am8, H8 = qp.implicit_system(A8, f8, rows.actf)
+    H8 = H8.repeat_interleave(reps, 0).contiguous()
+    print(f"  H {tuple(H8.shape)}: rows at positive force per point "
+          f"{[int(x) for x in am8.sum(1)]}", flush=True)
+    for dt in (torch.float64, torch.float32):
+        Hd = H8.to(dt).contiguous()
+        Lk = linalg.cholesky(Hd)
+        torch.cuda.synchronize()
+        Lp = linalg.cholesky_plain(Hd)
+        check(bool(torch.isfinite(Lk).all()), f"cholesky {dt} finite")
+        check(bool((torch.triu(Lk, 1) == 0).all()),
+              f"cholesky {dt}: L is exactly zero above the diagonal")
+        if dt == torch.float64:
+            rel = rel_diff(Lk, Lp)
+            check(rel <= 1e-12, f"cholesky float64 vs plain: {rel:.3e} <= 1e-12")
+            continue
+        Lk64 = Lk.double()
+        fac = (inf_norm(Lk64 @ Lk64.mT - Hd.double()) / inf_norm(Hd.double())).amax().item()
+        check(fac <= 1e-5, f"cholesky float32: |L L^T - H| / |H| {fac:.3e} <= 1e-5")
+        ms = cuda_ms(lambda: linalg.cholesky(Hd), 20)
+        plain = cuda_ms(lambda: linalg.cholesky_plain(Hd), 3)
+        lib = cuda_ms(lambda: torch.linalg.cholesky_ex(Hd)[0], 10)
+        Bn, n = Hd.shape[:2]
+        # lower H read, full L written
+        bms, by = bound_ms(4 * Bn * (n * (n + 1) / 2 + n * n), Bn * n ** 3 / 3, dt)
+        report["E"] = dict(max_abs_err=(Lk - Lp).abs().amax().item(),
+                           max_rel_err=rel_diff(Lk, Lp), max_factor_residual=fac, ms=ms,
+                           plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        print(f"  cholesky[K={n}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    # Kernel D at m = n = 75: the cholesky rule's L^-1 dA solves on the same
+    # batch (the factors of M at the points, a symmetric right-hand side)
+    L9 = sm8.chol.repeat_interleave(reps, 0).contiguous()
+    R9 = M8.repeat_interleave(reps, 0).contiguous()
+    for dt in (torch.float64, torch.float32):
+        Ld, bd = L9.to(dt), R9.to(dt)
+        yk = linalg.solve_lower(Ld, bd)
+        torch.cuda.synchronize()
+        yp = linalg.solve_lower_plain(Ld, bd)
+        if dt == torch.float64:
+            rel = rel_diff(yk, yp)
+            check(rel <= 1e-9, f"solve_lower[m=75] float64 vs plain: {rel:.3e} <= 1e-9")
+            continue
+        res = rel_residual(Ld, yk, bd)
+        check(res <= 1e-5, f"solve_lower[m=75] float32 relative residual {res:.3e} <= 1e-5")
+        ms = cuda_ms(lambda: linalg.solve_lower(Ld, bd), 20)
+        plain = cuda_ms(lambda: linalg.solve_lower_plain(Ld, bd), 3)
+        lib = cuda_ms(lambda: torch.linalg.solve_triangular(Ld, bd, upper=False), 10)
+        Bn, n, m = bd.shape
+        bms, by = bound_ms(4 * Bn * (n * (n + 1) / 2 + 2 * n * m), Bn * n * n * m, dt)
+        report["m=75"] = dict(max_abs_err=(yk - yp).abs().amax().item(),
+                              max_rel_err=rel_diff(yk, yp), max_residual=res, ms=ms,
+                              plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        print(f"  solve_lower[m=75, B={Bn}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+
+    # ------------------------------------------- 9. the differentiable path
+    print("phase 9: differentiable path (one Jacobian evaluation)", flush=True)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    A9, B9 = jacobians(dyn, x_pts, u_pts)
+    torch.cuda.synchronize()
+    t_jac = time.time() - t0
+    j_chol, j_cfs, j_sl, j_qp, j_e = (fn.launches for fn in counted)
+    check(j_cfs == 2 * CFI, f"cho_factor_solve launched {j_cfs} = 2 x {CFI} times")
+    check(j_sl == 16 * CFI, f"solve_lower launched {j_sl} = 16 x {CFI} times")
+    check(j_qp == CFI and j_e == CFI,
+          f"newton_qp and cholesky launched {j_qp}, {j_e} = {CFI} times")
+    check(j_chol == 0, f"chol_solve not launched ({j_chol})")
+    check(A9.shape == (N_POINTS, reps - model.nu, reps - model.nu)
+          and B9.shape == (N_POINTS, reps - model.nu, model.nu)
+          and bool(torch.isfinite(A9).all() and torch.isfinite(B9).all()),
+          f"Jacobians {tuple(A9.shape)} and {tuple(B9.shape)} finite")
+    print(f"  one Jacobian evaluation of {N_POINTS} points x {reps} replicas "
+          f"({N_POINTS * reps} systems, {CFI} substeps) in {t_jac:.3f} s on {card} (the "
+          "first forward-AD pass of the run)", flush=True)
+    # the replication's cost: the same evaluation again, warm, beside one
+    # forward-AD pass over the points alone (one tangent direction each)
+    t0 = time.time()
+    jacobians(dyn, x_pts, u_pts)
+    torch.cuda.synchronize()
+    t_jac = time.time() - t0
+    t0 = time.time()
+    with forward_ad.dual_level():
+        out = dyn(forward_ad.make_dual(x_pts, torch.ones_like(x_pts)), u_pts)
+        ok = bool(torch.isfinite(forward_ad.unpack_dual(out).tangent).all())
+    torch.cuda.synchronize()
+    t_jvp = time.time() - t0
+    check(ok, "a forward-AD pass over the points alone is finite")
+    print(f"  warm: one Jacobian evaluation ({N_POINTS * reps} systems) {t_jac:.3f} s, one "
+          f"forward-AD pass over the {N_POINTS} points alone {t_jvp:.3f} s: the {reps}x "
+          f"replication costs {t_jac / t_jvp:.2f}x the wall time", flush=True)
+
+    # card vs CPU in float64 on a short step
+    m64 = {d: registry.default_humanoid(torch.float64, device=d) for d in ("cuda", "cpu")}
+    x64, u64 = cmp_points(m64["cpu"])
+    jac64, act64 = {}, {}
+    for d, m_ in m64.items():
+        def dyn64(x, u, m_=m_):
+            st = engine.control_step(m_, engine.PhysicsState(x[:, :nq], x[:, nq:]), u,
+                                     CMP_CFI)[0]
+            return torch.cat([st.qpos, st.qvel], 1)
+        xd, ud = x64.to(d), u64.to(d)
+        jac64[d] = jacobians(dyn64, xd, ud)
+        # the reference loop's QP active set after each substep
+        st = engine.PhysicsState(xd[:, :nq], xd[:, nq:])
+        carry = engine.pd_cache(m_, st) + (torch.zeros(2, constraints.NEFC, dtype=torch.float64,
+                                                        device=d),)
+        q_, v_, sets = st.qpos, st.qvel, []
+        for _ in range(CMP_CFI):
+            q_, v_, M_, C_, fw_ = substep.control_loop(
+                m_, q_, v_, *carry, control.pd_target_from_action(m_, ud),
+                engine.reset_reference(m_), 1, reference=True)[:5]
+            carry = (M_, C_, fw_)
+            sets.append(fw_ > 0)
+        act64[d] = torch.stack(sets).cpu()
+    check(torch.equal(act64["cuda"], act64["cpu"]),
+          f"QP active sets equal on card and CPU ({int(act64['cpu'].sum())} rows at positive "
+          "force)")
+    for name, k in (("df/dx", 0), ("df/du", 1)):
+        ref, val = jac64["cpu"][k], jac64["cuda"][k].cpu()
+        diff = ((val - ref).abs() / (1.0 + ref.abs())).amax().item()
+        check(diff <= 1e-6,
+              f"{name} card vs CPU in float64 ({CMP_CFI} substeps): {diff:.3e} <= 1e-6")
+
+    # ------------------------------------------------------------ 10. iLQR
+    print("phase 10: ilqr_plan on the card", flush=True)
+    cost = lambda x, u, t: (x[:, nq] - 1.0) ** 2 + 1e-3 * (u * u).sum(1)
+    term = lambda x: 5.0 * (x[:, nq] - 1.0) ** 2
+    u0 = torch.zeros(N_POINTS, model.nu, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x, J0 = x_pts[:1], 0.0
+    for t in range(N_POINTS):
+        J0 = J0 + cost(x, u0[t:t + 1], None)
+        x = dyn(x, u0[t:t + 1])
+    J0 = float(J0 + term(x))
+    t_roll = time.time() - t0
+    t0 = time.time()
+    xs, us, J = ilqr_plan(dyn, cost, term, x_pts[0], u0, ILQRConfig(iterations=ILQR_ITERS))
+    J = float(J)
+    t_plan = time.time() - t0
+    # the planner's own initial rollout is the one above, bit for bit but
+    # for the order of the cost's sums
+    check(math.isfinite(J) and J <= J0 + 1e-6 * abs(J0), f"iLQR cost {J:.6f} <= initial {J0:.6f}")
+    s_iter = (t_plan - t_roll) / ILQR_ITERS
+    print(f"  {ILQR_ITERS} iterations over {N_POINTS} control steps in {t_plan:.3f} s "
+          f"({s_iter:.3f} s per iteration past the initial rollout of {t_roll:.3f} s) "
+          f"on {card}", flush=True)
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
     d_names = list(d_cases)
+    paths = lambda uhc, torque, jac: dict(
+        launches=uhc + torque + jac,
+        launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque)},
+        launches_per_jacobian=jac)
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:334", launches=n_chol + t_chol,
-             launches_per_control_step={"uhc_pd": per_step(n_chol), "torque": per_step(t_chol)},
+             replaces="smplsim_tpu/ops/linalg_kernels.py:334", **paths(n_chol, t_chol, j_chol),
              # the main path calls it once at each shape per substep: the
              # numbers are the mean of one launch of each
              **{k: mean(("m=1,diag", "m=33"), k)
@@ -547,25 +782,27 @@ def main() -> None:
              bound_by=report["m=33"]["bound_by"],
              shapes={k: report[k] for k in ("m=1,diag", "m=33")}),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
-             replaces="smplsim_tpu/ops/qp_kernel.py:256", launches=n_qp + t_qp,
-             launches_per_control_step={"uhc_pd": per_step(n_qp), "torque": per_step(t_qp)},
+             replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp),
              **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"]}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:104", launches=n_cfs + t_cfs,
-             launches_per_control_step={"uhc_pd": per_step(n_cfs), "torque": per_step(t_cfs)},
+             replaces="smplsim_tpu/ops/linalg_kernels.py:104", **paths(n_cfs, t_cfs, j_cfs),
              **report["C"]),
         dict(name="solve_lower", route="cuda", source="smplsim_tpu_torch/ops/csrc/solve_lower.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:423", launches=n_sl + t_sl,
-             launches_per_control_step={"uhc_pd": per_step(n_sl), "torque": per_step(t_sl)},
+             replaces="smplsim_tpu/ops/linalg_kernels.py:423", **paths(n_sl, t_sl, j_sl),
              # the torque path launches it once at each shape per substep:
              # the numbers are the mean of one launch of each
              **{k: mean(d_names, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              **{k: max(report[c][k] for c in d_names)
                 for k in ("max_abs_err", "max_rel_err", "max_residual")},
              bound_by=report[d_names[0]]["bound_by"],
-             shapes={k: report[k] for k in d_names}),
+             shapes={k: report[k] for k in d_names + ["m=75"]}),
+        dict(name="cholesky", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
+             replaces="smplsim_tpu/ops/linalg_kernels.py:410", **paths(n_e, t_e, j_e),
+             **report["E"]),
     ]
+    print(f"jacobian: {N_POINTS * reps} systems in {t_jac:.3f} s; ilqr: {s_iter:.3f} s per "
+          f"iteration", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -33,6 +33,8 @@ _SIGNATURES = {
     "chol_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cho_factor_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cho_factor_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cholesky_f32": (_P, _P, _I, _I, _P),
+    "cholesky_f64": (_P, _P, _I, _I, _P),
     "solve_lower_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "solve_lower_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "newton_qp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),

@@ -1,4 +1,4 @@
-"""Batched dense SPD linear algebra: three hand-written kernels and their
+"""Batched dense SPD linear algebra: four hand-written kernels and their
 plain versions.
 
   * `chol_solve` (Kernel A): x = (A + diag(d))^-1 b, replacing the TPU
@@ -17,9 +17,13 @@ plain versions.
     cho_solve (two). The per-env path calls it three times per substep: the
     Gram-form Delassus factor Y = L^-1 J^T (m=K) and the constraint
     acceleration (m=1, twice).
+  * `cholesky` (Kernel E): L with L L^T = A, replacing
+    linalg_kernels.py::cholesky_batched (body _chol_kernel), the vmap rule
+    of physics/linalg.py::cholesky. Only the contact QP's implicit-function
+    derivative calls it (ops/qp.py), once per substep under forward AD.
 
 On a CUDA tensor each wrapper launches its kernel, built from csrc/
-(chol_solve.cu holds A and C, which share device code through a template
+(chol_solve.cu holds A, C and E, which share device code through a template
 flag that stores the factor; solve_lower.cu holds D): one thread block per
 system, the lower triangle and the right-hand side in shared memory, the
 column recurrences with a block barrier between columns. What bounds them
@@ -37,10 +41,17 @@ of smplsim_tpu/physics/linalg.py::_cholesky_ref, solve_lower, solve_lower_t
 and _cho_solve_ref, batched. All of them read only the lower triangle.
 The kernels take contiguous tensors and raise on any other layout: a caller
 with a transposed view makes the copy itself (`.contiguous()`).
+
+The wrappers are not differentiable: a kernel writes a fresh tensor from
+its inputs' primal values, so each wrapper raises on an input that carries a
+forward-mode tangent or requires grad. Derivatives go through the
+`torch.autograd.Function`s of physics/linalg.py and ops/qp.py, whose rules
+call these wrappers on primal values and tangents.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
 from smplsim_tpu_torch.ops import _build
 
@@ -102,17 +113,30 @@ def solve_lower_any_plain(L, b, trans: bool = False):
     return solve_lower_t_plain(L, b) if trans else solve_lower_plain(L, b)
 
 
-def _check(name, A, b, diag=None):
-    """Shapes, types and devices of a (B,n,n) matrix, a (B,n,m) right-hand
-    side and an optional (B,n) diagonal; on a CUDA device also contiguity.
-    Returns True where the kernel is to run, False on the CPU."""
-    if A.dim() != 3 or b.dim() != 3 or A.shape[1] != A.shape[2] \
-            or b.shape[:2] != A.shape[:2]:
-        raise ValueError(f"{name}: A {tuple(A.shape)} and b {tuple(b.shape)} "
-                         "must be (B,n,n) and (B,n,m)")
+def check_no_derivative(name, *ts):
+    """Raise if a tensor carries a forward-mode tangent or requires grad: the
+    kernel would drop its derivative without a word."""
+    for t in ts:
+        if t.requires_grad or forward_ad.unpack_dual(t).tangent is not None:
+            raise RuntimeError(
+                f"{name}: an input carries a derivative, which the kernel would drop; "
+                "differentiate through smplsim_tpu_torch.physics.linalg or "
+                "ops.qp.newton_qp_ad")
+
+
+def _check(name, A, b=None, diag=None):
+    """Shapes, types and devices of a (B,n,n) matrix, an optional (B,n,m)
+    right-hand side and an optional (B,n) diagonal, none carrying a
+    derivative; on a CUDA device also contiguity. Returns True where the
+    kernel is to run, False on the CPU."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2] or (
+            b is not None and (b.dim() != 3 or b.shape[:2] != A.shape[:2])):
+        raise ValueError(f"{name}: A {tuple(A.shape)} and b "
+                         f"{None if b is None else tuple(b.shape)} must be (B,n,n) and (B,n,m)")
     if diag is not None and diag.shape != A.shape[:2]:
         raise ValueError(f"{name}: diag {tuple(diag.shape)} must be (B,n)")
-    ts = (A, b) + (() if diag is None else (diag,))
+    ts = tuple(t for t in (A, b, diag) if t is not None)
+    check_no_derivative(name, *ts)
     for t in ts:
         if t.dtype not in (torch.float32, torch.float64) or t.dtype != A.dtype:
             raise TypeError(f"{name}: all inputs must share float32 or float64")
@@ -196,6 +220,27 @@ def solve_lower(L: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.
 
 
 solve_lower.launches = 0
+
+
+def cholesky(A: torch.Tensor) -> torch.Tensor:
+    """L (B,n,n), the lower Cholesky factor of each SPD A (B,n,n), with exact
+    zeros above the diagonal; only the lower triangle of A is read."""
+    if not _check("cholesky", A):
+        return cholesky_plain(A)
+    Bn, n = A.shape[:2]
+    if A.element_size() * n * n > _SMEM_MAX:
+        raise ValueError(f"cholesky: n={n} exceeds a block's shared memory")
+    L = torch.empty_like(A)
+    name = "cholesky_f32" if A.dtype == torch.float32 else "cholesky_f64"
+    fn = _build.kernel("chol_solve.cu", name)
+    with torch.cuda.device(A.device):
+        status = fn(A.data_ptr(), L.data_ptr(), Bn, n, _stream(A))
+    _build.check(status, name)
+    cholesky.launches += 1
+    return L
+
+
+cholesky.launches = 0
 
 
 def tri_solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,17 @@ reproduced: SMPLSIM_QP_PHASE1 and SMPLSIM_QP_STRAGGLER_DIV are not read.
 Knobs (the JAX package's, same defaults): SMPLSIM_QP_ITERS is the iteration
 cap, SMPLSIM_QP_TOL the float32 KKT tolerance relative to 1 + max|b|;
 float64 uses 1e-12.
+
+`newton_qp` is not differentiable and raises on an input that carries a
+derivative. `newton_qp_ad` is the differentiable form (the custom_jvp of
+qp_kernel.py::newton_qp): its primal is `newton_qp`, and its forward-mode
+derivative is the implicit-function rule at the returned active set
+S = {i : f_i > 0, active}, where A_SS f_S = b_S, so
+df_S = A_SS^-1 (db_S - dA_S f) (qp_kernel.py:452-468), not the derivative of
+the unrolled iterations; the two coincide only where the QP converged. The
+rule factors the masked system H = A o (a a^T) + diag(1 - a) with
+`linalg.cholesky` (Kernel E) and solves with `linalg.cho_solve` (Kernel D,
+twice). f0 and `active` get no tangent.
 """
 from __future__ import annotations
 
@@ -46,9 +57,9 @@ import os
 
 import torch
 
-from smplsim_tpu_torch.ops import _build
+from smplsim_tpu_torch.ops import _build, linalg
 from smplsim_tpu_torch.ops.linalg import (
-    _SMEM_MAX, cholesky_plain, solve_lower_plain, solve_lower_t_plain)
+    _SMEM_MAX, check_no_derivative, cholesky_plain, solve_lower_plain, solve_lower_t_plain)
 
 NEWTON_ITERS = int(os.environ.get("SMPLSIM_QP_ITERS", 40))
 _LS_STEPS = (1.0, 0.5, 0.25, 0.0625, 0.015625)
@@ -128,6 +139,7 @@ def _check(A, b, active, f0):
             raise TypeError("newton_qp: inputs must share dtype and device")
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError("newton_qp: float32 or float64 only")
+    check_no_derivative("newton_qp", A, b, active, f0)
 
 
 def newton_qp(A: torch.Tensor, b: torch.Tensor, active: torch.Tensor,
@@ -160,3 +172,50 @@ def newton_qp(A: torch.Tensor, b: torch.Tensor, active: torch.Tensor,
 
 
 newton_qp.launches = 0
+
+
+def implicit_system(A: torch.Tensor, f: torch.Tensor, active: torch.Tensor):
+    """(am (B,K), H (B,K,K)) of the implicit-function rule at the solution f:
+    am is 1 on the rows where f > 0 and the row is active, H the system A
+    restricted to them with identity elsewhere."""
+    am = ((f > 0) & (active > 0.5)).to(A.dtype)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return am, A * am[:, :, None] * am[:, None, :] + eye * (1.0 - am)[:, None, :]
+
+
+class NewtonQP(torch.autograd.Function):
+    """`newton_qp` with the implicit-function forward-mode rule."""
+
+    @staticmethod
+    def forward(A, b, active, f0, iters, tol):
+        return newton_qp(A.detach(), b.detach(), active.detach(), f0.detach(), iters, tol)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, _, active = inputs[:3]
+        ctx.save_for_forward(A, active, output)
+
+    @staticmethod
+    def jvp(ctx, dA, db, *_):
+        A, active, f = ctx.saved_tensors
+        am, H = implicit_system(A, f, active)
+        rhs = torch.zeros_like(f)
+        if db is not None:
+            rhs = rhs + db
+        if dA is not None:
+            rhs = rhs - (dA @ f[..., None])[..., 0]
+        rhs = rhs * am
+        return linalg.cho_solve(linalg.cholesky(H), rhs[..., None].contiguous())[..., 0] * am
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("newton_qp_ad: reverse mode is not implemented; "
+                                  "use forward-mode AD (torch.autograd.forward_ad)")
+
+
+def newton_qp_ad(A, b, active, f0, iters: int | None = None, tol: float | None = None):
+    """`newton_qp` (same arguments) that forward-mode AD differentiates by the
+    implicit-function rule; f0 and `active` get no tangent."""
+    iters = NEWTON_ITERS if iters is None else int(iters)
+    tol = tol_for(A.dtype) if tol is None else float(tol)
+    return NewtonQP.apply(A, b, active, f0, iters, tol)

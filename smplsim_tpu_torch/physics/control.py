@@ -9,6 +9,10 @@ Stable-PD (the uhc_pd control mode):
 
 M includes armature; M and C are the PREVIOUS substep's, as MuJoCo's
 mjData.qM and qfrc_bias are when the reference controller reads them.
+`stable_pd_torque` is the batched spine's form (one `chol_solve` with the
+diagonal shift); `stable_pd_torque_ref` the per-env form of the JAX
+package, which factors M + dt diag(kd) with the differentiable
+`cho_factor_solve` and is what the reference loop runs under forward AD.
 
 Torque (the torque control mode, the reference's SimpleTorqueController):
 tau = clip(action * power_scale * torque_lim, +-torque_lim).
@@ -19,6 +23,7 @@ import torch
 
 from smplsim_tpu_torch.models.spec import RobotModel
 from smplsim_tpu_torch.ops import linalg
+from smplsim_tpu_torch.physics import linalg as ad_linalg
 
 
 def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tensor:
@@ -38,13 +43,24 @@ def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target):
     return rhs[..., None], (kd * dt).expand(B, nv).contiguous(), qerr
 
 
+def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc):
+    tau = -model.jkp * qerr - model.jkd * (qvel[:, 6:] + qacc[:, 6:] * model.timestep)
+    return torch.clamp(tau, -model.torque_lim, model.torque_lim)
+
+
 def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
     """tau (B,nu) from the stale (M, C) and the current state; the
     (M + dt diag(kd)) solve is one fused factor+solve (`linalg.chol_solve`)."""
     rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
-    qacc = linalg.chol_solve(M_prev, rhs, diag)[..., 0]
-    tau = -model.jkp * qerr - model.jkd * (qvel[:, 6:] + qacc[:, 6:] * model.timestep)
-    return torch.clamp(tau, -model.torque_lim, model.torque_lim)
+    return _stable_pd_tau(model, qerr, qvel, linalg.chol_solve(M_prev, rhs, diag)[..., 0])
+
+
+def stable_pd_torque_ref(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
+    """tau (B,nu) as `stable_pd_torque`, through one `cho_factor_solve` of
+    M_prev + dt diag(kd) (smplsim_tpu/physics/control.py::stable_pd_torque)."""
+    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
+    qacc = ad_linalg.cho_factor_solve(M_prev + torch.diag_embed(diag), rhs)[1][..., 0]
+    return _stable_pd_tau(model, qerr, qvel, qacc)
 
 
 def torque_ctrl(model: RobotModel, action: torch.Tensor,

@@ -13,7 +13,8 @@ of physics/topology.py.
 
 `smooth_dynamics` (the per-env path's unconstrained step,
 smplsim_tpu/physics/dynamics.py::smooth_dynamics) factors M and solves for
-the smooth acceleration in one `cho_factor_solve` launch.
+the smooth acceleration in one `cho_factor_solve` launch (differentiable:
+physics/linalg.py).
 """
 from __future__ import annotations
 
@@ -22,8 +23,7 @@ import dataclasses
 import torch
 
 from smplsim_tpu_torch.models.spec import RobotModel
-from smplsim_tpu_torch.ops import linalg
-from smplsim_tpu_torch.physics import algebra
+from smplsim_tpu_torch.physics import algebra, linalg
 from smplsim_tpu_torch.physics.kinematics import Kin
 from smplsim_tpu_torch.physics.topology import mask_tensor
 

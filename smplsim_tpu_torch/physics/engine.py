@@ -17,12 +17,23 @@ lifecycle. The cache a control step returns is (M, C, efc_force): pass it to
 the next control step to continue an episode, its last entry warm-starting
 the next contact solve; a 2-tuple (M, C) starts cold, None primes with a
 fresh forward pass (the reference's mj_forward at reset).
+
+Forward-mode AD (torch.autograd.forward_ad): when any tensor input of a
+uhc_pd control step carries a tangent, it runs the per-env reference form
+of the loop (substep.control_loop with reference=True; the JAX package's
+engine.py::_uhc_core_ref, which its custom_jvp differentiates) instead of
+the batched spine: stable-PD and the smooth solve through
+`cho_factor_solve`, the Gram-form contact solve, and the derivative rules
+of physics/linalg.py and ops/qp.py. The spine's kernels raise on a
+tangent. The torque and default modes run the per-env
+composition already. Reverse mode is not implemented.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.autograd import forward_ad
 
 from smplsim_tpu_torch.models.spec import RobotModel
 from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinematics, solver
@@ -127,9 +138,11 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
         M0, C0, f_w0 = cache
     K = None if qp_rows is None else min(qp_rows, constraints.NEFC)
     target = pd_target_from_action(model, action)
+    tangent = any(forward_ad.unpack_dual(t).tangent is not None
+                  for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref))
     q, v, M, C, f_w, power, nact, stall, gfc = control_loop(
         model, state.qpos, state.qvel, M0, C0, f_w0, target, reset_ref,
-        control_freq_inv, qp_iters, K, qp_tol, keeps)
+        control_freq_inv, qp_iters, K, qp_tol, keeps, reference=tangent)
     return (PhysicsState(q, v), LeanInfo(gfc, nact, stall), power, (M, C, f_w))
 
 

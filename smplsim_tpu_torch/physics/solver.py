@@ -15,7 +15,10 @@ dynamics' L), the Delassus matrix comes in Gram form, Y = L^-1 J^T and
 A = Y^T Y + diag(R) (one triangular solve over K columns and a matrix
 product), and the constraint acceleration is a second solve with L. The
 Gram form and the fused form above agree only to rounding, so each is held
-to its own JAX counterpart.
+to its own JAX counterpart. The per-env form is differentiable: its solves
+are the Functions of physics/linalg.py and its QP is `qp.newton_qp_ad`, so
+forward-mode AD takes the JAX package's rules through it. The spine's
+kernels raise on an input that carries a derivative.
 
 Knob (the JAX package's, same default): SMPLSIM_QP_ROWS is K before the
 min with NEFC.
@@ -28,6 +31,7 @@ import os
 import torch
 
 from smplsim_tpu_torch.ops import linalg, qp
+from smplsim_tpu_torch.physics import linalg as ad_linalg
 from smplsim_tpu_torch.physics.constraints import EFC, MAX_LIMITS, NEFC
 from smplsim_tpu_torch.physics.dynamics import Smooth
 from smplsim_tpu_torch.physics.topology import mask_tensor
@@ -135,7 +139,8 @@ def solve_constraints_gram(model, S, smooth: Smooth, efc: EFC, f_warm=None,
     """S (B,nv,6) dof subspaces; smooth from `dynamics.smooth_dynamics`;
     f_warm (B,NEFC) previous forces in the full row layout, None for a cold
     start. Kernels: three `solve_lower` launches (m=K, then m=1 twice) and
-    one `newton_qp` launch."""
+    one `newton_qp` launch; under forward AD their rules add five
+    `solve_lower` launches and one `cholesky`."""
     K = min(COMPACT_ROWS, NEFC) if K is None else K
     tol = qp.tol_for(S.dtype) if tol is None else tol
     B = S.shape[0]
@@ -146,14 +151,14 @@ def solve_constraints_gram(model, S, smooth: Smooth, efc: EFC, f_warm=None,
     active = rows.actf > 0.5
     # the kernels take contiguous tensors: J^T is copied out of the row layout
     Jt = rows.J.transpose(1, 2).contiguous()                          # (B,nv,K)
-    Y = linalg.tri_solve_lower(smooth.chol, Jt)
+    Y = ad_linalg.tri_solve_lower(smooth.chol, Jt)
     A = Y.transpose(1, 2) @ Y + torch.diag_embed(rows.R)
     b = rows.aref - (rows.J @ smooth.qacc_smooth[..., None])[..., 0]
     b = torch.where(active, b, torch.zeros_like(b))
-    f = qp.newton_qp(A, b, rows.actf, rows.f0, iters, tol)
+    f = qp.newton_qp_ad(A, b, rows.actf, rows.f0, iters, tol)
 
     qfrc = Jt @ f[..., None]                                          # (B,nv,1)
-    qacc = smooth.qacc_smooth + linalg.cho_solve(smooth.chol, qfrc)[..., 0]
+    qacc = smooth.qacc_smooth + ad_linalg.cho_solve(smooth.chol, qfrc)[..., 0]
     efc_force = torch.zeros((B, NEFC), dtype=S.dtype, device=S.device).scatter(1, rows.idx, f)
     nactive = efc.active.sum(1, dtype=torch.int32)
     stalled = qp.kkt_residual(A, b, f, rows.actf) > tol * (1.0 + b.abs().amax(-1))

@@ -15,13 +15,23 @@ Each substep:
 
 Kernels per substep: two `chol_solve` launches (stable-PD, smooth +
 Delassus) and one `newton_qp` launch.
+
+With `reference=True` the same loop runs the per-env reference form of
+smplsim_tpu/physics/engine.py::_uhc_core_ref (without ext_force and
+projectiles), the JAX package's differentiation path, which
+engine.control_step takes under forward-mode AD: stable-PD and the smooth
+solve through the differentiable `cho_factor_solve` (Kernel C, twice) and
+the Gram-form contact solve (Kernels D, B, D), whose derivative rules add
+five Kernel D launches and one Kernel E launch per substep under forward
+AD. The two forms agree only to rounding.
 """
 from __future__ import annotations
 
 import torch
 
 from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinematics, solver
-from smplsim_tpu_torch.physics.control import stable_pd_torque
+from smplsim_tpu_torch.physics import linalg as ad_linalg
+from smplsim_tpu_torch.physics.control import stable_pd_torque, stable_pd_torque_ref
 
 MJ_MAXVAL = 1e10
 
@@ -31,8 +41,9 @@ def _bad(x: torch.Tensor) -> torch.Tensor:
 
 
 def control_loop(model, q, v, M, C, f_w, target, reset_ref, control_freq_inv: int,
-                 qp_iters=None, K=None, tol=None, keeps=None):
-    """Run the substeps from (q, v) with the stale (M, C) and warm start f_w.
+                 qp_iters=None, K=None, tol=None, keeps=None, reference: bool = False):
+    """Run the substeps from (q, v) with the stale (M, C) and warm start f_w,
+    in the batched form or (`reference`) the per-env reference form.
 
     Returns (q, v, M, C, f_w, power (B,), nactive_max (B,) int32,
     stalled_any (B,), geom_floor_contact (B,ngeom)) after the last substep."""
@@ -45,14 +56,21 @@ def control_loop(model, q, v, M, C, f_w, target, reset_ref, control_freq_inv: in
     gfc = None
     z6 = torch.zeros((B, 6), dtype=q.dtype, device=q.device)
     for _ in range(control_freq_inv):
-        tau = stable_pd_torque(model, M, C, q, v, target)
+        tau = (stable_pd_torque_ref if reference else stable_pd_torque)(
+            model, M, C, q, v, target)
         kin = kinematics.fk(model, q)
         M = dynamics.mass_matrix(model, kin)
         C = dynamics.bias_forces(model, kin, v)
         qfrc = torch.cat([z6, model.gear * tau], 1) - model.dof_damping * v - C
         efc = constraints.make_efc(model, kin, q, v, keeps)
-        qacc, f_w2, nactive, stalled = solver.solve_constraints(
-            model, kin.S, M, qfrc, efc, f_w, qp_iters, K, tol)
+        if reference:
+            chol, qacc_s = ad_linalg.cho_factor_solve(M, qfrc[..., None])
+            smooth = dynamics.Smooth(M=M, chol=chol, qfrc_smooth=qfrc, qacc_smooth=qacc_s[..., 0])
+            sol = solver.solve_constraints_gram(model, kin.S, smooth, efc, f_w, qp_iters, K, tol)
+            qacc, f_w2, nactive, stalled = sol.qacc, sol.efc_force, sol.nactive, sol.stalled
+        else:
+            qacc, f_w2, nactive, stalled = solver.solve_constraints(
+                model, kin.S, M, qfrc, efc, f_w, qp_iters, K, tol)
         q2, v2 = integrator.euler_step(q, v, qacc, dt)
 
         bad = _bad(q) | _bad(v) | _bad(qacc)

@@ -97,6 +97,7 @@ def test_port_sources_import_no_jax():
 def test_control_step_runs_without_importing_jax():
     code = (
         "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
         "from smplsim_tpu_torch.models import registry\n"
         "from smplsim_tpu_torch.physics import engine\n"
         "m = registry.default_humanoid(torch.float64, device='cpu')\n"
@@ -108,6 +109,21 @@ def test_control_step_runs_without_importing_jax():
         "st3, info, power, cache = engine.control_step(m, st, torch.full((1, m.nu), 0.01, "
         "dtype=torch.float64), control_freq_inv=1, control_mode='torque', power_scale=10.0)\n"
         "assert torch.isfinite(st3.qpos).all() and cache is None\n"
+        # a forward-mode Jacobian through the uhc_pd step and one iLQR
+        # iteration over it (the reference loop and the derivative rules)
+        "from smplsim_tpu_torch.control import ILQRConfig, ilqr_plan, jacobians\n"
+        "def dyn(x, u):\n"
+        "    s = engine.control_step(m, engine.PhysicsState(x[:, :m.nq], x[:, m.nq:]), u, "
+        "control_freq_inv=1)[0]\n"
+        "    return torch.cat([s.qpos, s.qvel], 1)\n"
+        "x0 = torch.cat([st.qpos, st.qvel], 1)\n"
+        "u0 = torch.zeros(1, m.nu, dtype=torch.float64)\n"
+        "A, B = jacobians(dyn, x0, u0)\n"
+        "assert A.shape == (1, 151, 151) and B.shape == (1, 151, 69)\n"
+        "assert torch.isfinite(A).all() and torch.isfinite(B).all() and B.abs().max() > 0\n"
+        "xs, us, J = ilqr_plan(dyn, lambda x, u, t: (x[:, m.nq] - 1.0) ** 2, "
+        "lambda x: (x[:, m.nq] - 1.0) ** 2, x0[0], u0, ILQRConfig(iterations=1))\n"
+        "assert torch.isfinite(J) and xs.shape == (2, 151)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'smplsim_tpu')]\n"
         "assert not bad, bad\n"
