@@ -4,7 +4,9 @@
 
 Phases (any failure exits non-zero):
   1. environment: torch, CUDA, the card's name and power limit; TF32 off;
-     build the CUDA kernels from smplsim_tpu_torch/ops/csrc with nvcc;
+     build the CUDA kernels from smplsim_tpu_torch/ops/csrc with nvcc; the
+     registers and local memory (cudaFuncGetAttributes) of every
+     instantiation of Kernels C and D, failing if a float32 one spills;
   2. kernels against their plain PyTorch versions on the card, on inputs
      taken from a real substep of the main path (B=4096 HumanoidSpeed envs
      after a few control steps): Kernel A chol_solve at m=1 + diag
@@ -57,7 +59,14 @@ Phases (any failure exits non-zero):
  10. ilqr_plan on the card from HumanoidSpeed's reset state: 4 control
      steps, 2 iterations, the root-velocity cost of tests/test_control.py;
      the final cost finite and not above the initial one; wall seconds per
-     iteration.
+     iteration;
+ 11. edge cases of Kernels C and D against their plain versions on random
+     SPD systems: B in (1, 3, 33), n in (32, 75), m in (1, 2, 32, 75), D in
+     both directions, float64 elementwise within 1e-9, float32 by relative
+     residual within 1e-5 (and |L L^T - A| / |A| for C); C exactly zero
+     above the diagonal; 7.0 and NaN above the diagonal change no bit of
+     either result; a NaN system in the middle of a batch of 33 changes no
+     bit of the other 32.
 
 Phases 3, 6 and 9 each set every launch count to 0 just before and read
 them just after. The third-to-last line is the `kernels` JSON object, the
@@ -215,6 +224,80 @@ def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
                 iterations_mean=n_it / Bn, iterations_max=int(its.max()))
 
 
+def edge_cases(linalg, dev) -> None:
+    """Phase 11: Kernels C and D against their plain versions on random SPD
+    systems at every dispatch shape, with garbage above the diagonal and a
+    NaN system in the batch."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst = {}
+
+    def note(key, val):
+        worst[key] = max(worst.get(key, 0.0), val)
+
+    garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
+    for dt in (torch.float64, torch.float32):
+        name = "float64" if dt == torch.float64 else "float32"
+        for n in (32, 75):
+            for Bn in (1, 3, 33):
+                G = torch.randn(Bn, n, n, generator=g, device=dev, dtype=torch.float64)
+                A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
+                Lf = linalg.cholesky_plain(A)
+                for m in (1, 2, 32, 75):
+                    b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=torch.float64).to(dt)
+                    shape = f"B={Bn}, n={n}, m={m}"
+                    for trans in (False, True):
+                        xk = linalg.solve_lower(Lf, b, trans)
+                        xp = linalg.solve_lower_any_plain(Lf, b, trans)
+                        if dt == torch.float64:
+                            note(("D", name, "elementwise"), rel_diff(xk, xp))
+                        else:
+                            note(("D", name, "residual"),
+                                 rel_residual(Lf.mT if trans else Lf, xk, b))
+                        for fill in (7.0, float("nan")):
+                            if not torch.equal(linalg.solve_lower(garbage(Lf, fill), b, trans), xk):
+                                fail(f"solve_lower {name} {shape} trans={trans}: {fill} above "
+                                     "the diagonal changed the result")
+                    Lk, xk = linalg.cho_factor_solve(A, b)
+                    Lp, xp = linalg.cho_factor_solve_plain(A, b)
+                    if not bool((torch.triu(Lk, 1) == 0).all()):
+                        fail(f"cho_factor_solve {name} {shape}: L not zero above the diagonal")
+                    if dt == torch.float64:
+                        note(("C", name, "elementwise"), max(rel_diff(Lk, Lp), rel_diff(xk, xp)))
+                    else:
+                        Lk64, A64 = Lk.double(), A.double()
+                        note(("C", name, "residual"), rel_residual(A, xk, b))
+                        note(("C", name, "factor"),
+                             (inf_norm(Lk64 @ Lk64.mT - A64) / inf_norm(A64)).amax().item())
+                    for fill in (7.0, float("nan")):
+                        Lg, xg = linalg.cho_factor_solve(garbage(A, fill), b)
+                        if not (torch.equal(Lg, Lk) and torch.equal(xg, xk)):
+                            fail(f"cho_factor_solve {name} {shape}: {fill} above the diagonal "
+                                 "changed the result")
+                if Bn == 33:
+                    # a NaN system between finite ones stays in its own system
+                    keep = torch.arange(Bn, device=dev) != Bn // 2
+                    An, Ln = A.clone(), Lf.clone()
+                    An[Bn // 2] = float("nan")
+                    Ln[Bn // 2] = float("nan")
+                    for m in (1, 32):
+                        b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=dt)
+                        ok = all(torch.equal(linalg.solve_lower(Ln, b, t)[keep],
+                                             linalg.solve_lower(Lf, b, t)[keep])
+                                 for t in (False, True))
+                        ok = ok and all(torch.equal(u[keep], v[keep]) for u, v in zip(
+                            linalg.cho_factor_solve(An, b), linalg.cho_factor_solve(A, b)))
+                        check(ok, f"{name} n={n} m={m}: a NaN system in a batch of {Bn} leaves "
+                                  "the others' results bit for bit")
+    for (kern, name, what), val in sorted(worst.items()):
+        tol = 1e-9 if name == "float64" else 1e-5
+        label = {"elementwise": "vs plain, per system relative to max|plain|",
+                 "residual": "relative residual", "factor": "|L L^T - A| / |A|"}[what]
+        check(val <= tol, f"{'cho_factor_solve' if kern == 'C' else 'solve_lower'} {name} "
+                          f"{label}, worst over B in (1, 3, 33), n in (32, 75), m in "
+                          f"(1, 2, 32, 75): {val:.3e} <= {tol:g}")
+    print("  ok: 7.0 and NaN above the diagonal change no bit of C's or D's results", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -239,6 +322,13 @@ def main() -> None:
     t0 = time.time()
     _build.build_all()
     print(f"kernels built in {time.time() - t0:.1f} s into {_build.BUILD_DIR}", flush=True)
+    attrs = linalg.kernel_attributes()
+    for a in attrs:
+        print(f"  {a}")
+    spilled = [a for a in attrs if a["dtype"] == "float32" and a["local_bytes"] > 0]
+    check(not spilled, f"no float32 instantiation of Kernels C and D uses local memory "
+                       f"({len(attrs)} instantiations; float64 with local memory: "
+                       f"{sum(a['local_bytes'] > 0 for a in attrs)})")
 
     model = registry.default_humanoid(torch.float32)
     env = HumanoidSpeed(model, **QP)
@@ -762,6 +852,10 @@ def main() -> None:
           f"({s_iter:.3f} s per iteration past the initial rollout of {t_roll:.3f} s) "
           f"on {card}", flush=True)
 
+    # ------------------------------------------------ 11. C and D edge cases
+    print("phase 11: kernels C and D on edge cases", flush=True)
+    edge_cases(linalg, dev)
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
@@ -785,7 +879,7 @@ def main() -> None:
              replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp),
              **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"]}),
         dict(name="cho_factor_solve", route="cuda",
-             source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
+             source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:104", **paths(n_cfs, t_cfs, j_cfs),
              **report["C"]),
         dict(name="solve_lower", route="cuda", source="smplsim_tpu_torch/ops/csrc/solve_lower.cu",

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` into ``build/kernels/`` beside the package
 (a directory git ignores). All sources are compiled in parallel the first
-time any kernel is asked for; a library is named by the hash of its source,
-so an edited source is rebuilt and an unchanged one is reused.
+time any kernel is asked for; a library is named by the hash of its source
+and of the shared headers (``csrc/*.cuh``), so an edited source is rebuilt
+and an unchanged one is reused.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "kernels")
-SOURCES = ("chol_solve.cu", "newton_qp.cu", "solve_lower.cu")
+SOURCES = ("chol_solve.cu", "cho_factor_solve.cu", "newton_qp.cu", "solve_lower.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,6 +38,8 @@ _SIGNATURES = {
     "cholesky_f64": (_P, _P, _I, _I, _P),
     "solve_lower_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "solve_lower_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "solve_lower_attrs": (_I, _P),
+    "cho_factor_solve_attrs": (_I, _P),
     "newton_qp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
     "newton_qp_f64": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
 }
@@ -50,8 +53,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [src] + sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{src[:-3]}_{digest[:16]}.so")
 
 

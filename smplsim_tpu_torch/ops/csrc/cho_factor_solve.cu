@@ -1,0 +1,284 @@
+// Batched SPD factor + solve for Hopper (sm_90a):
+//     L = chol(A), x = A^-1 b       A (B,n,n), b (B,n,m),
+// L returned with exact zeros above the diagonal.
+//
+// Replaces the TPU kernel smplsim_tpu/ops/linalg_kernels.py::
+// chol_solve_batched (body _chol_solve_kernel). Only the lower triangle of A
+// is read.
+//
+// What bounds it on the H100: at n=75, m=1 a system moves 34.5 KB in
+// float32 (A's triangle read, the full L written, b and x) for n^3/3 + 2 n^2
+// flops, so 4096 systems are bound by bytes at 0.042 ms; the factor is n
+// dependent column steps, each a rank-1 update of the trailing triangle.
+//
+// Design: one block per system, the factor in registers.
+//   * Load: A's lower triangle, packed, into shared memory (tri_warp.cuh):
+//     batches of plain loads in flight together, no division per element.
+//   * Ownership: the lower triangle is cut into 4x4 tiles, numbered down the
+//     tile columns, and thread t keeps tiles t, t + P, ... (TPT of them) in
+//     registers for the whole factor. The tile coordinates are found once;
+//     no loop divides, and tiles above the diagonal do not exist. Rows past
+//     n are identity, so the last diagonal tile stays finite.
+//   * Blocked right-looking factor over 4-column panels, two block barriers
+//     per panel (n/2 in all, against 3n in the column-by-column factor of
+//     chol_solve.cu, which A and E share). (a) The owners of panel p's
+//     tiles each factor the diagonal tile from a shared copy (a 4x4
+//     Cholesky in registers) and turn their tile into L_ip = A_ip L_pp^-T,
+//     written to a panel buffer. (b) Every trailing tile takes
+//     A_ij -= L_ip L_jp^T, 64 FMAs from eight vector loads of the buffer,
+//     and the owner of the next diagonal tile copies it out. The same tiles
+//     stepped column by column (one barrier and a rank-1 update of 16 FMAs
+//     per tile per column) measured slower on the H100: a column step's
+//     latency is mostly the barrier and the pivot, not the FMAs.
+//   * FP32 FMA on the CUDA cores: TF32 tensor cores would miss the 1e-5
+//     factor and residual gates.
+//   * Solve: the factor goes back to the packed triangle in shared memory;
+//     one warp per right-hand-side column runs the forward and the back
+//     substitution with x in registers (tri_warp.cuh), no block barrier.
+//   * Store: L row by row, coalesced, zeros above the diagonal written with
+//     it.
+// The TPU kernel's panel blocking, rhs chunking and 128-lane padding are
+// VMEM and lane devices and are not carried over.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tri_warp.cuh"
+
+namespace {
+
+using tri::load4;
+using tri::tri;
+
+constexpr int kMaxThreads = 256;
+
+// The 4x4 lower Cholesky factor l of the tile d (row-major, lower part
+// read) and the reciprocals of its diagonal.
+template <typename T>
+__device__ __forceinline__ void chol4(const T (&d)[4][4], T (&l)[4][4], T (&inv)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    T s = d[c][c];
+#pragma unroll
+    for (int q = 0; q < c; ++q) s -= l[c][q] * l[c][q];
+    l[c][c] = tri::root(s);
+    inv[c] = tri::div(T(1), l[c][c]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (r < c) {
+        l[r][c] = T(0);
+      } else if (r > c) {
+        T v = d[r][c];
+#pragma unroll
+        for (int q = 0; q < c; ++q) v -= l[r][q] * l[c][q];
+        l[r][c] = v * inv[c];
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* p, T (&v)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) load4(p + 4 * r, v[r]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tile(T* p, const T (&v)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) p[4 * r + c] = v[r][c];
+}
+
+template <typename T, int TPT, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+cho_factor_solve_kernel(const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ Lout,
+                        T* __restrict__ x, int n, int m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ntr = (n + 3) >> 2;              // tile rows
+  T* D = reinterpret_cast<T*>(smem_raw);     // the next diagonal tile, updated (4x4)
+  T* PB = D + 16;                            // the panel's factor tiles (ntr x 4x4)
+  T* Lp = PB + 16 * ntr;                     // packed lower triangle
+  const int sys = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+
+  // a block of 96 threads at n=75 copies 30 entries each: batches of 8 keep
+  // the loader's registers below the factor's
+  tri::load_lower<T, false, 8>(Lp, A + (size_t)sys * n * n, n, tid, nt);
+  __syncthreads();
+
+  int ti[TPT], tj[TPT];
+  bool own[TPT];
+  T a[TPT][4][4];
+#pragma unroll
+  for (int t = 0; t < TPT; ++t) {
+    int rem = tid + t * nt, j = 0;
+    while (j < ntr && rem >= ntr - j) {
+      rem -= ntr - j;
+      ++j;
+    }
+    own[t] = j < ntr;
+    tj[t] = j;
+    ti[t] = j + rem;
+    // rows and columns past n: identity, which keeps the last diagonal
+    // tile's factor finite and leaves the others untouched
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * ti[t] + r, jj = 4 * tj[t] + c;
+        a[t][r][c] = !own[t] || jj > i ? T(0)
+                     : i >= n          ? T(i == jj)
+                                       : Lp[tri(i) + jj];
+      }
+    if (own[t] && ti[t] == 0) store_tile(D, a[t]);
+  }
+  __syncthreads();
+
+  for (int p = 0; p < ntr; ++p) {
+    // the panel: tiles (i, p) become L_ip = A_ip L_pp^-T, L_pp from the
+    // diagonal tile, which every owner in the panel factors for itself
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+      if (!own[t] || tj[t] != p) continue;
+      T d[4][4], l[4][4], inv[4];
+      load_tile(D, d);
+      chol4(d, l, inv);
+      if (ti[t] == p) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a[t][r][c] = l[r][c];
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            T v = a[t][r][c];
+#pragma unroll
+            for (int q = 0; q < c; ++q) v -= a[t][r][q] * l[c][q];
+            a[t][r][c] = v * inv[c];
+          }
+      }
+      store_tile(PB + 16 * ti[t], a[t]);
+    }
+    __syncthreads();
+    // the trailing update A_ij -= L_ip L_jp^T, 64 FMAs per tile
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+      if (!own[t] || tj[t] <= p) continue;
+      T li[4][4], lj[4][4];
+      load_tile(PB + 16 * ti[t], li);
+      load_tile(PB + 16 * tj[t], lj);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[t][r][c] -= li[r][q] * lj[c][q];
+      if (ti[t] == p + 1 && tj[t] == p + 1) store_tile(D, a[t]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int t = 0; t < TPT; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * ti[t] + r, j = 4 * tj[t] + c;
+        if (own[t] && i < n && j <= i) Lp[tri(i) + j] = a[t][r][c];
+      }
+  __syncthreads();
+
+  const T* bs = b + (size_t)sys * n * m;
+  T* xs = x + (size_t)sys * n * m;
+  if (warp < m) {
+    T inv[R];
+    tri::pivots<T, R>(Lp, n, lane, inv);
+    for (int c = warp; c < m; c += nwarps) {
+      T X[R];
+      tri::load_col<T, R>(bs, X, n, m, c, lane);
+      tri::forward<T, R>(Lp, inv, X, n, lane);
+      tri::backward<T, R>(Lp, inv, X, n, lane);
+      tri::store_col<T, R>(xs, X, n, m, c, lane);
+    }
+  }
+  T* Ls = Lout + (size_t)sys * n * n;
+#pragma unroll 2
+  for (int i = warp; i < n; i += nwarps)
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int j = lane + 32 * s;
+      if (j < n) Ls[(size_t)i * n + j] = j <= i ? Lp[tri(i) + j] : T(0);
+    }
+}
+
+template <typename T, int TPT, int R>
+int run(const void* A, const void* b, void* L, void* x, int B, int n, int m,
+        cudaStream_t stream) {
+  const int ntr = (n + 3) / 4;
+  const int tiles = ntr * (ntr + 1) / 2;
+  int threads = ((tiles + TPT - 1) / TPT + 31) / 32 * 32;
+  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * (16 + 16 * (size_t)ntr + (size_t)tri(n));
+  cudaError_t err = tri::allow_smem(cho_factor_solve_kernel<T, TPT, R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  cho_factor_solve_kernel<T, TPT, R><<<B, threads, smem, stream>>>(
+      (const T*)A, (const T*)b, (T*)L, (T*)x, n, m);
+  return (int)cudaGetLastError();
+}
+
+// tiles per thread TPT and solve rows per lane R by n: at most 256 threads
+// per system, n <= 176
+template <typename T>
+int launch(const void* A, const void* b, void* L, void* x, int B, int n, int m, void* stream_) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream_;
+  if (n <= 32) return run<T, 1, 1>(A, b, L, x, B, n, m, s);
+  if (n <= 64) return run<T, 1, 2>(A, b, L, x, B, n, m, s);
+  if (n <= 96) return run<T, 2, 3>(A, b, L, x, B, n, m, s);
+  if (n <= 128) return run<T, 4, 4>(A, b, L, x, B, n, m, s);
+  if (n <= 176) return run<T, 4, 6>(A, b, L, x, B, n, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Inst {
+  const void* fn;
+  int dtype_bytes, tpt, r;
+};
+
+#define CFS_INST(T, TPT, R) {(const void*)cho_factor_solve_kernel<T, TPT, R>, (int)sizeof(T), TPT, R}
+const Inst kInsts[] = {
+    CFS_INST(float, 1, 1),  CFS_INST(float, 1, 2),  CFS_INST(float, 2, 3),
+    CFS_INST(float, 4, 4),  CFS_INST(float, 4, 6),  CFS_INST(double, 1, 1),
+    CFS_INST(double, 1, 2), CFS_INST(double, 2, 3), CFS_INST(double, 4, 4),
+    CFS_INST(double, 4, 6)};
+#undef CFS_INST
+
+}  // namespace
+
+// L (B,n,n) and x (B,n,m) with L L^T = A, A x = b. The launch goes to
+// `stream` on the current device; returns cudaGetLastError().
+extern "C" int cho_factor_solve_f32(const void* A, const void* b, void* L, void* x, int B,
+                                    int n, int m, void* stream) {
+  return launch<float>(A, b, L, x, B, n, m, stream);
+}
+
+extern "C" int cho_factor_solve_f64(const void* A, const void* b, void* L, void* x, int B,
+                                    int n, int m, void* stream) {
+  return launch<double>(A, b, L, x, B, n, m, stream);
+}
+
+// Instantiation i of the kernel: out = {registers per thread, local memory
+// bytes per thread, bytes of the element type, TPT, R}. Returns -1 past the
+// last one, else a CUDA error code.
+extern "C" int cho_factor_solve_attrs(int i, int* out) {
+  if (i < 0 || i >= (int)(sizeof(kInsts) / sizeof(kInsts[0]))) return -1;
+  const Inst& k = kInsts[i];
+  out[2] = k.dtype_bytes;
+  out[3] = k.tpt;
+  out[4] = k.r;
+  return tri::attributes(k.fn, out);
+}

@@ -1,14 +1,11 @@
 // Batched fused SPD factor + solve for Hopper (sm_90a):
 //     x = (A + diag(d))^-1 b        A (B,n,n), b (B,n,m), d (B,n) or null,
 // and, through the same device code with the factor stored,
-//     L = chol(A), x = A^-1 b       (cho_factor_solve),
 //     L = chol(A)                   (cholesky: no right-hand side, m = 0).
 //
 // chol_solve_* replaces the TPU kernel
 // smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes (body
-// _chol_solve_only_kernel); cho_factor_solve_* replaces
-// linalg_kernels.py::chol_solve_batched (body _chol_solve_kernel), which
-// returns the factor as well; cholesky_* replaces
+// _chol_solve_only_kernel); cholesky_* replaces
 // linalg_kernels.py::cholesky_batched (body _chol_kernel), the factor alone,
 // which backs the contact QP's implicit-function derivative (the masked
 // K x K system H = A o (a a^T) + diag(1 - a)). One thread block owns one
@@ -17,18 +14,19 @@
 // column Cholesky (threads over the trailing triangle), then solved by
 // forward and back substitution (threads over rows x rhs columns). Each
 // input byte is read once and x is written once; chol_solve keeps the factor
-// on chip, cho_factor_solve and cholesky write it out once as a full (n,n)
-// matrix with exact zeros above the diagonal.
+// on chip, cholesky writes it out once as a full (n,n) matrix with exact
+// zeros above the diagonal. (cho_factor_solve.cu holds Kernel C, which
+// returns both, on a design of its own.)
 //
 // What bounds it on the H100: at n=75 a system moves 12 KB (m=1) to 31 KB
-// (m=33) in float32, 34.5 KB with the stored factor, and needs 1.5e5 to
-// 5.1e5 flops, light on both, so the kernel is latency-bound on the 3n
-// block-wide barriers of the factor and the two substitutions (cholesky at
-// K=32: 6.2 KB, 1.1e4 flops and the factor's 3K barriers alone). The
-// design keeps all of the recurrence in shared memory so that no barrier
-// waits on device memory; the TPU's panel blocking, rhs chunking and 128-lane
-// padding (cholesky_batched pads n to a multiple of 8 with identity) are
-// VMEM and lane devices and are not carried over.
+// (m=33) in float32 and needs 1.5e5 to 5.1e5 flops, light on both, so the
+// kernel is latency-bound on the 3n block-wide barriers of the factor and
+// the two substitutions (cholesky at K=32: 6.2 KB, 1.1e4 flops and the
+// factor's 3K barriers alone), and on the r^2 index walk of each trailing
+// update. The design keeps all of the recurrence in shared memory so that
+// no barrier waits on device memory; the TPU's panel blocking, rhs chunking
+// and 128-lane padding (cholesky_batched pads n to a multiple of 8 with
+// identity) are VMEM and lane devices and are not carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -137,17 +135,6 @@ extern "C" int chol_solve_f32(const void* A, const void* b, const void* diag, vo
 extern "C" int chol_solve_f64(const void* A, const void* b, const void* diag, void* x,
                               int B, int n, int m, void* stream) {
   return launch<double, false>(A, b, diag, x, nullptr, B, n, m, stream);
-}
-
-// L (B,n,n) and x (B,n,m) with L L^T = A, A x = b; no diagonal shift.
-extern "C" int cho_factor_solve_f32(const void* A, const void* b, void* L, void* x,
-                                    int B, int n, int m, void* stream) {
-  return launch<float, true>(A, b, nullptr, x, L, B, n, m, stream);
-}
-
-extern "C" int cho_factor_solve_f64(const void* A, const void* b, void* L, void* x,
-                                    int B, int n, int m, void* stream) {
-  return launch<double, true>(A, b, nullptr, x, L, B, n, m, stream);
 }
 
 // L (B,n,n), the lower Cholesky factor of each SPD A (B,n,n) with exact zeros

@@ -3,100 +3,226 @@
 //
 // Replaces the TPU kernel smplsim_tpu/ops/linalg_kernels.py::
 // solve_lower_batched (body _solve_lower_kernel). Only the lower triangle of
-// L is read. One thread block owns one system: L's lower triangle is packed
-// row by row into shared memory (n(n+1)/2 values, 11.4 KB at n=75 in
-// float32) beside the right-hand side tile (n,m); then n column steps, each
-// one block barrier: each thread divides its columns of row k of the tile
-// by the pivot (row k is final and only read in step k, so no barrier is
-// needed for it), the threads of row lane 0 write the finished row k to x,
-// and the threads over (row, rhs column) update the rows still open (below
-// k, or above k for L^T). Each input byte is read once and x is written
-// once.
+// L is read.
 //
 // What bounds it on the H100: at n=75 a system moves 12 KB at m=1 and 31 KB
-// at m=32 in float32 with 2 n^2 m flops, so the work is light on both bytes
-// and flops and the kernel is latency-bound on its n dependent block
-// barriers; at m=1 only one column's worth of threads (n-1 at most) has
-// work in a step. The design keeps the whole recurrence in shared memory so
-// that no barrier waits on device memory, and sizes the block to the rhs
-// (96 threads at m=1, 256 at m >= 4) so that more systems are resident per
-// SM. The TPU kernel's rhs chunks of 32 columns and 128-lane padding are
-// VMEM and lane devices and are not carried over.
+// at m=32 in float32 (the triangle once, b and x) for n^2 m flops, so 4096
+// systems are bound by bytes at 0.015 ms (m=1) and 0.037 ms (m=32); the
+// recurrence itself is n dependent steps per column.
+//
+// Both forms load only the n(n+1)/2 lower entries into shared memory, in
+// batches of plain loads all in flight at once, with no division per
+// element (tri_warp.cuh), and run no block barrier after that load.
+//
+// m <= 4, a warp per column (solve_lower_warp_kernel): lane l holds rows
+// l, l + 32, ... of x in registers; step k is one multiply by the reciprocal
+// pivot (taken once per row before the recurrence), one shuffle (the owner
+// of row k broadcasts x_k) and one FMA per owned row, with L read from the
+// packed triangle. This column-oriented form is used in both directions
+// (L x = b reads column k of L, L^T x = b reads row k, both free of bank
+// conflicts); the row-oriented one (a dot product of row k with x, reduced
+// across the warp) puts five dependent shuffles on every step instead of
+// one. At m = 1 four systems share a block, each warp on its own: a tail
+// warp past the batch returns, since nothing waits for it.
+//
+// m > 4, a thread per column (solve_lower_cols_kernel): one block per
+// system, thread c owns rhs column c, and the rows go in blocks of 8 kept in
+// registers: the finished rows' contribution is a loop of 8-row by 4-column
+// products (eight vector loads of L, four of x from shared memory, 32 FMAs),
+// then the 8x8 diagonal block is solved in registers. L sits in the
+// row-aligned layout so that those vector loads are aligned. Warps of 8
+// columns x 4 row groups (the warp form widened) measured no faster than
+// torch.linalg.solve_triangular at m = 75, B = 880 on the H100: each step
+// does one FMA per shared load, and the code unrolled per register slot
+// runs to tens of KB; this form does four FMAs per load in a loop of a few
+// hundred instructions.
+// The TPU kernel's rhs chunks of 32 columns and 128-lane padding are VMEM
+// and lane devices and are not carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tri_warp.cuh"
+
 namespace {
 
-__device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+using tri::div;
+using tri::load4;
+using tri::rowoff;
+using tri::tri;
 
-template <typename T>
-__global__ void solve_lower_kernel(const T* __restrict__ L, const T* __restrict__ b,
-                                   T* __restrict__ x, int n, int m, int trans) {
-  extern __shared__ unsigned char smem_raw[];
-  T* Lp = reinterpret_cast<T*>(smem_raw);  // packed lower triangle: (i,j) at tri(i)+j
-  T* X = Lp + tri(n);                      // (n, m) row-major
-  const int sys = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const T* Ls = L + (size_t)sys * n * n;
+constexpr int kSystemsPerBlock = 4;  // warp kernel, one warp per system at m = 1
+constexpr int kColsThreads = 256;    // column kernel, most threads per block
+constexpr int kRB = 8;               // column kernel, rows per register block
+
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * kSystemsPerBlock)
+solve_lower_warp_kernel(const T* __restrict__ L, const T* __restrict__ b, T* __restrict__ x,
+                        int B, int n, int m, int trans, int spb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // spb systems of one warp each, or one system of m warps (spb = 1)
+  const int slot = spb > 1 ? warp : 0;
+  const int sys = blockIdx.x * spb + slot;
+  if (sys >= B) return;  // only where spb > 1: no block barrier follows
+  const int nsw = spb > 1 ? 1 : blockDim.x >> 5;  // warps of this system
+  const int wsys = warp - slot;
+  T* Lp = reinterpret_cast<T*>(smem_raw) + (size_t)slot * tri(n);
+  tri::load_lower(Lp, L + (size_t)sys * n * n, n, wsys * 32 + lane, nsw * 32);
+  if (nsw == 1) __syncwarp();
+  else __syncthreads();
+
   const T* bs = b + (size_t)sys * n * m;
   T* xs = x + (size_t)sys * n * m;
-
-  for (int idx = tid; idx < n * n; idx += nt) {
-    const int i = idx / n, j = idx - (idx / n) * n;
-    if (j <= i) Lp[tri(i) + j] = Ls[idx];
-  }
-  for (int idx = tid; idx < n * m; idx += nt) X[idx] = bs[idx];
-  __syncthreads();
-
-  // thread t owns rhs columns c = t % cw (+ cw, ...) and, in each step,
-  // the open rows r = t / cw (+ rl, ...): each thread divides its column's
-  // pivot row once per step, with no integer division in the inner loop
-  const int cw = m < nt ? m : nt;
-  const int rl = nt / cw;
-  const int c0 = tid % cw, r0 = tid / cw;
-  if (!trans) {
-    // forward substitution, column k: x_k = X_k / L_kk; X_i -= L_ik x_k, i > k
-    for (int k = 0; k < n; ++k) {
-      const T piv = Lp[tri(k) + k];
-      for (int c = c0; c < m; c += cw) {
-        const T xk = X[k * m + c] / piv;
-        if (r0 == 0) xs[k * m + c] = xk;
-        if (r0 < rl)
-          for (int i = k + 1 + r0; i < n; i += rl) X[i * m + c] -= Lp[tri(i) + k] * xk;
-      }
-      __syncthreads();
-    }
-  } else {
-    // back substitution with L^T, column k: x_k = X_k / L_kk; X_i -= L_ki x_k, i < k
-    for (int k = n - 1; k >= 0; --k) {
-      const T piv = Lp[tri(k) + k];
-      for (int c = c0; c < m; c += cw) {
-        const T xk = X[k * m + c] / piv;
-        if (r0 == 0) xs[k * m + c] = xk;
-        if (r0 < rl)
-          for (int i = r0; i < k; i += rl) X[i * m + c] -= Lp[tri(k) + i] * xk;
-      }
-      __syncthreads();
-    }
+  T inv[R];
+  tri::pivots<T, R>(Lp, n, lane, inv);
+  for (int c = wsys; c < m; c += nsw) {
+    T X[R];
+    tri::load_col<T, R>(bs, X, n, m, c, lane);
+    if (trans) tri::backward<T, R>(Lp, inv, X, n, lane);
+    else tri::forward<T, R>(Lp, inv, X, n, lane);
+    tri::store_col<T, R>(xs, X, n, m, c, lane);
   }
 }
 
 template <typename T>
-int launch(const void* L, const void* b, void* x, int B, int n, int m, int trans,
-           void* stream) {
-  const size_t smem = sizeof(T) * ((size_t)n * (n + 1) / 2 + (size_t)n * m);
-  cudaError_t err = cudaFuncSetAttribute(solve_lower_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((n * m + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  if (B > 0) {
-    solve_lower_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const T*)L, (const T*)b, (T*)x, n, m, trans);
+__global__ void __launch_bounds__(kColsThreads)
+solve_lower_cols_kernel(const T* __restrict__ L, const T* __restrict__ b, T* __restrict__ x,
+                        int n, int m, int mw, int trans) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n8 = (n + kRB - 1) / kRB * kRB;
+  T* Lr = reinterpret_cast<T*>(smem_raw);  // row-aligned lower triangle, n8 rows
+  T* Xs = Lr + rowoff(n8);                 // (n8, mw): finished rows of x
+  const int sys = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  tri::load_lower<T, true>(Lr, L + (size_t)sys * n * n, n, tid, nt);
+  __syncthreads();
+
+  const T* bs = b + (size_t)sys * n * m;
+  T* xs = x + (size_t)sys * n * m;
+  // rows i >= n of the last block hold garbage: they are never stored, and
+  // no row < n reads them
+  for (int c = tid; c < mw; c += nt) {
+    const bool live = c < m;
+    if (!trans) {
+      for (int i0 = 0; i0 < n; i0 += kRB) {
+        T acc[kRB];
+#pragma unroll
+        for (int r = 0; r < kRB; ++r)
+          acc[r] = live && i0 + r < n ? bs[(size_t)(i0 + r) * m + c] : T(0);
+        for (int j = 0; j < i0; j += 4) {
+          T xq[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xq[q] = Xs[(j + q) * mw + c];
+#pragma unroll
+          for (int r = 0; r < kRB; ++r) {
+            T lq[4];
+            load4(Lr + rowoff(i0 + r) + j, lq);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[r] -= lq[q] * xq[q];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kRB; ++r) {
+          const T* row = Lr + rowoff(i0 + r) + i0;
+#pragma unroll
+          for (int q = 0; q < r; ++q) acc[r] -= row[q] * acc[q];
+          acc[r] = div(acc[r], row[r]);
+          Xs[(i0 + r) * mw + c] = acc[r];
+          if (live && i0 + r < n) xs[(size_t)(i0 + r) * m + c] = acc[r];
+        }
+      }
+    } else {
+      for (int i0 = n8 - kRB; i0 >= 0; i0 -= kRB) {
+        T acc[kRB];
+#pragma unroll
+        for (int r = 0; r < kRB; ++r)
+          acc[r] = live && i0 + r < n ? bs[(size_t)(i0 + r) * m + c] : T(0);
+        for (int j = i0 + kRB; j < n; ++j) {
+          const T xj = Xs[j * mw + c];
+          T lo[4], hi[4];
+          load4(Lr + rowoff(j) + i0, lo);
+          load4(Lr + rowoff(j) + i0 + 4, hi);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc[r] -= lo[r] * xj;
+            acc[r + 4] -= hi[r] * xj;
+          }
+        }
+#pragma unroll
+        for (int r = kRB - 1; r >= 0; --r) {
+          const int i = i0 + r;
+#pragma unroll
+          for (int q = r + 1; q < kRB; ++q)
+            if (i0 + q < n) acc[r] -= Lr[rowoff(i0 + q) + i] * acc[q];
+          acc[r] = div(acc[r], Lr[rowoff(i) + i]);
+          Xs[i * mw + c] = acc[r];
+          if (live && i < n) xs[(size_t)i * m + c] = acc[r];
+        }
+      }
+    }
   }
+}
+
+template <typename T, int R>
+int run_warp(const void* L, const void* b, void* x, int B, int n, int m, int trans,
+             cudaStream_t stream) {
+  const size_t tri_bytes = sizeof(T) * (size_t)tri(n);
+  int spb = 1;
+  if (m == 1) {
+    spb = kSystemsPerBlock;
+    while (spb > 1 && spb * tri_bytes > 48 * 1024) --spb;
+  }
+  const int threads = spb > 1 ? 32 * spb : 32 * m;
+  const size_t smem = spb * tri_bytes;
+  cudaError_t err = tri::allow_smem(solve_lower_warp_kernel<T, R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  solve_lower_warp_kernel<T, R><<<(B + spb - 1) / spb, threads, smem, stream>>>(
+      (const T*)L, (const T*)b, (T*)x, B, n, m, trans, spb);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+int run_cols(const void* L, const void* b, void* x, int B, int n, int m, int trans,
+             cudaStream_t stream) {
+  const int n8 = (n + kRB - 1) / kRB * kRB;
+  int threads = (m + 31) / 32 * 32;
+  if (threads > kColsThreads) threads = kColsThreads;
+  const int mw = (m + threads - 1) / threads * threads;
+  const size_t smem = sizeof(T) * ((size_t)rowoff(n8) + (size_t)n8 * mw);
+  cudaError_t err = tri::allow_smem(solve_lower_cols_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  solve_lower_cols_kernel<T><<<B, threads, smem, stream>>>((const T*)L, (const T*)b, (T*)x, n,
+                                                          m, mw, trans);
+  return (int)cudaGetLastError();
+}
+
+// m <= 4: rows per lane R in 1, 2, 3, 4, 8 (n <= 32 R, n <= 256)
+template <typename T>
+int launch(const void* L, const void* b, void* x, int B, int n, int m, int trans,
+           void* stream_) {
+  if (B <= 0 || n <= 0 || m <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream_;
+  if (m > 4) return run_cols<T>(L, b, x, B, n, m, trans, s);
+  if (n <= 32) return run_warp<T, 1>(L, b, x, B, n, m, trans, s);
+  if (n <= 64) return run_warp<T, 2>(L, b, x, B, n, m, trans, s);
+  if (n <= 96) return run_warp<T, 3>(L, b, x, B, n, m, trans, s);
+  if (n <= 128) return run_warp<T, 4>(L, b, x, B, n, m, trans, s);
+  if (n <= 256) return run_warp<T, 8>(L, b, x, B, n, m, trans, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Inst {
+  const void* fn;
+  int dtype_bytes, form, r;  // form: 1 warp per column, 0 thread per column
+};
+
+#define SL_WARP(T, R) {(const void*)solve_lower_warp_kernel<T, R>, (int)sizeof(T), 1, R}
+#define SL_COLS(T) {(const void*)solve_lower_cols_kernel<T>, (int)sizeof(T), 0, kRB}
+const Inst kInsts[] = {
+    SL_WARP(float, 1),  SL_WARP(float, 2),  SL_WARP(float, 3),  SL_WARP(float, 4),
+    SL_WARP(float, 8),  SL_COLS(float),     SL_WARP(double, 1), SL_WARP(double, 2),
+    SL_WARP(double, 3), SL_WARP(double, 4), SL_WARP(double, 8), SL_COLS(double)};
+#undef SL_WARP
+#undef SL_COLS
 
 }  // namespace
 
@@ -109,4 +235,17 @@ extern "C" int solve_lower_f32(const void* L, const void* b, void* x, int B, int
 extern "C" int solve_lower_f64(const void* L, const void* b, void* x, int B, int n, int m,
                                int trans, void* stream) {
   return launch<double>(L, b, x, B, n, m, trans, stream);
+}
+
+// Instantiation i of the kernels: out = {registers per thread, local memory
+// bytes per thread, bytes of the element type, form (1: a warp per column,
+// 0: a thread per column), rows per lane or per register block}. Returns -1
+// past the last one, else a CUDA error code.
+extern "C" int solve_lower_attrs(int i, int* out) {
+  if (i < 0 || i >= (int)(sizeof(kInsts) / sizeof(kInsts[0]))) return -1;
+  const Inst& k = kInsts[i];
+  out[2] = k.dtype_bytes;
+  out[3] = k.form;
+  out[4] = k.r;
+  return tri::attributes(k.fn, out);
 }

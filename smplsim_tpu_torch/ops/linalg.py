@@ -22,18 +22,31 @@ plain versions.
     of physics/linalg.py::cholesky. Only the contact QP's implicit-function
     derivative calls it (ops/qp.py), once per substep under forward AD.
 
-On a CUDA tensor each wrapper launches its kernel, built from csrc/
-(chol_solve.cu holds A, C and E, which share device code through a template
-flag that stores the factor; solve_lower.cu holds D): one thread block per
-system, the lower triangle and the right-hand side in shared memory, the
-column recurrences with a block barrier between columns. What bounds them
-on the H100: at n=75 a system moves 12 KB (m=1) to 35 KB (C with its
-stored factor) and needs 1.5e5 to 5.1e5 flops, so for 4096 systems in
-float32 the byte bound is 0.015 to 0.042 ms, while the recurrences are n to
-3n dependent steps with a block barrier each: the kernels are bound by that
-barrier chain, not by bytes or flops. The design answers with
-shared-memory residency (no step waits on device memory) and many resident
-blocks per SM to hide the barriers; PERF.md has their measured times
+On a CUDA tensor each wrapper launches its kernel, built from csrc/. What
+bounds them on the H100: at n=75 a system moves 12 KB (m=1) to 35 KB (C
+with its stored factor) and needs 1.5e5 to 5.1e5 flops, so for 4096 systems
+in float32 the byte bound is 0.015 to 0.042 ms, while every kernel runs n to
+3n dependent steps per system; the designs differ in what a step costs.
+
+  * chol_solve.cu (A, and E through the same device code with the factor
+    stored and no right-hand side): one thread block per system, the matrix
+    and the right-hand side in shared memory, the column recurrences with
+    block barriers between columns (3n in the factor, 4n more in the two
+    substitutions) and an r^2 index walk per trailing update: bound by that
+    barrier chain.
+  * cho_factor_solve.cu (C): one block per system, each thread keeps fixed
+    4x4 tiles of the lower triangle in registers; a blocked right-looking
+    factor over 4-column panels, two barriers per panel, 64 FMAs per tile
+    and panel from vector reads of a shared panel buffer; the substitutions
+    run warp-synchronously on the factor packed in shared memory.
+  * solve_lower.cu (D): the lower triangle in shared memory (lower entries
+    only, loaded in batches all in flight), the right-hand side in
+    registers, no block barrier after the load. m <= 4: a warp per column
+    (one warp per system at m=1, four systems per block), one multiply by
+    the reciprocal pivot, one shuffle and one FMA per row per step. m > 4:
+    a thread per column, rows in register blocks of 8.
+
+The shared pieces are in tri_warp.cuh; PERF.md has the measured times
 against the bounds.
 
 On a CPU tensor each wrapper runs its plain version: the column recurrences
@@ -50,6 +63,8 @@ call these wrappers on primal values and tangents.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.autograd import forward_ad
 
@@ -57,6 +72,9 @@ from smplsim_tpu_torch.ops import _build
 
 # dynamic shared memory a block may use on Hopper (232,448 bytes)
 _SMEM_MAX = 232448
+# the largest n the register tiles of Kernels C and D hold
+_CFS_MAX_N = 176
+_SL_MAX_N = 256
 
 
 def cholesky_plain(H: torch.Tensor) -> torch.Tensor:
@@ -183,12 +201,13 @@ def cho_factor_solve(A: torch.Tensor, b: torch.Tensor):
     if not _check("cho_factor_solve", A, b):
         return cho_factor_solve_plain(A, b)
     Bn, n, m = b.shape
-    if A.element_size() * n * (n + m) > _SMEM_MAX:
-        raise ValueError(f"cho_factor_solve: n={n}, m={m} exceed a block's shared memory")
+    if n > _CFS_MAX_N:
+        raise ValueError(f"cho_factor_solve: n={n} exceeds the kernel's register tiles "
+                         f"(n <= {_CFS_MAX_N})")
     L = torch.empty_like(A)
     x = torch.empty_like(b)
     name = "cho_factor_solve_f32" if A.dtype == torch.float32 else "cho_factor_solve_f64"
-    fn = _build.kernel("chol_solve.cu", name)
+    fn = _build.kernel("cho_factor_solve.cu", name)
     with torch.cuda.device(A.device):
         status = fn(A.data_ptr(), b.data_ptr(), L.data_ptr(), x.data_ptr(), Bn, n, m,
                     _stream(A))
@@ -206,8 +225,9 @@ def solve_lower(L: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.
     if not _check("solve_lower", L, b):
         return solve_lower_any_plain(L, b, trans)
     Bn, n, m = b.shape
-    if L.element_size() * (n * (n + 1) // 2 + n * m) > _SMEM_MAX:
-        raise ValueError(f"solve_lower: n={n}, m={m} exceed a block's shared memory")
+    if n > _SL_MAX_N or L.element_size() * n * (n + 1) // 2 > _SMEM_MAX:
+        raise ValueError(f"solve_lower: n={n} exceeds the kernel's register rows or a "
+                         "block's shared memory")
     x = torch.empty_like(b)
     name = "solve_lower_f32" if L.dtype == torch.float32 else "solve_lower_f64"
     fn = _build.kernel("solve_lower.cu", name)
@@ -253,3 +273,26 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x with L L^T x = b given the lower factor L: two `solve_lower`
     launches (smplsim_tpu/physics/linalg.py::cho_solve)."""
     return solve_lower(L, solve_lower(L, b), trans=True)
+
+
+def kernel_attributes() -> list[dict]:
+    """cudaFuncGetAttributes of every instantiation of Kernels C and D:
+    registers and local memory (spills) per thread, by type and tile (C:
+    tiles per thread TPT and solve rows per lane R; D: its form and rows per
+    lane or per register block R)."""
+    out = []
+    for src, kind, tile in (("cho_factor_solve.cu", "cho_factor_solve", "TPT"),
+                            ("solve_lower.cu", "solve_lower", "warp_per_column")):
+        fn = _build.kernel(src, f"{kind}_attrs")
+        i = 0
+        while True:
+            vals = (ctypes.c_int * 5)()
+            status = fn(i, vals)
+            if status == -1:
+                break
+            _build.check(status, f"{kind}_attrs")
+            regs, local, size, t, r = vals
+            out.append(dict(kernel=kind, dtype="float32" if size == 4 else "float64",
+                            **{tile: t}, R=r, num_regs=regs, local_bytes=local))
+            i += 1
+    return out

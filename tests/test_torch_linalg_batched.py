@@ -7,6 +7,11 @@ taken from real substeps.
   * linalg.tri_solve_lower / cho_solve (Kernel D's plain version) vs
     jax.vmap(tri_solve_lower) at m = 32 and 64 and jax.vmap(cho_solve) at
     m = 1;
+  * linalg.solve_lower in both directions vs jax.vmap(solve_lower) and
+    jax.vmap(solve_lower_t) at every shape Kernel D's dispatch tells apart,
+    and linalg.cho_factor_solve vs jax.vmap(cho_factor_solve), on random
+    SPD systems with 7.0 or NaN above the diagonal of the port's input:
+    only the lower triangle is read;
   * dynamics.smooth_dynamics vs jax.vmap(dynamics.smooth_dynamics);
   * solver.solve_constraints_gram vs jax.vmap(solver.solve_constraints) at
     K = 32 and 64, cold and warm started;
@@ -112,6 +117,42 @@ def test_cho_solve_plain_matches_jax(substeps, dtype):
     np.testing.assert_array_equal(
         linalg.solve_lower(Lf, y, trans=True).numpy(), linalg.cho_solve(Lf, rhs[..., None]).numpy())
     assert float((Lf @ y - rhs[..., None]).abs().max()) < tol * float(rhs.abs().max())
+
+
+def _spd(n, seed):
+    """(A, its lower factor, b) numpy float64, 3 random SPD systems."""
+    rng = np.random.RandomState(seed)
+    G = rng.randn(3, n, n)
+    A = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+    return A, np.linalg.cholesky(A), rng.randn(3, n, 2)
+
+
+def _garbage(M, fill):
+    return torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
+
+
+# (n, m): one warp per system at m = 1 (rows per lane 1 and 3), one warp
+# per column at m = 2, a thread per column at m = 75
+@pytest.mark.parametrize("trans", [False, True], ids=["L", "LT"])
+@pytest.mark.parametrize("n,m", [(32, 1), (75, 1), (75, 2), (75, 75)])
+def test_solve_lower_plain_matches_jax_at_dispatch_shapes(n, m, trans):
+    _, L, _ = _spd(n, n + m)
+    b = np.random.RandomState(m).randn(3, n, m)
+    fn = jax_linalg.solve_lower_t if trans else jax_linalg.solve_lower
+    x_j = jax.jit(jax.vmap(fn))(jnp.asarray(L), jnp.asarray(b))
+    for fill in (7.0, float("nan")):
+        x = linalg.solve_lower(_garbage(T(L), fill), T(b), trans)
+        assert x.shape == (3, n, m) and rel_err(x_j, x) < 1e-9
+
+
+@pytest.mark.parametrize("fill", [7.0, float("nan")], ids=["7", "nan"])
+@pytest.mark.parametrize("n", [32, 75])
+def test_cho_factor_solve_plain_reads_only_the_lower_triangle(n, fill):
+    A, _, b = _spd(n, n)
+    L_j, x_j = jax.jit(jax.vmap(jax_linalg.cho_factor_solve))(jnp.asarray(A), jnp.asarray(b))
+    L, x = linalg.cho_factor_solve(_garbage(T(A), fill), T(b))
+    assert rel_err(L_j, L) < 1e-9 and rel_err(x_j, x) < 1e-9
+    assert bool((torch.triu(L, 1) == 0).all())
 
 
 def test_smooth_dynamics_matches_jax(substeps):
