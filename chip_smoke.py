@@ -6,13 +6,19 @@ Phases (any failure exits non-zero):
   1. environment: torch, CUDA, the card's name and power limit; TF32 off;
      build the CUDA kernels from smplsim_tpu_torch/ops/csrc with nvcc; the
      registers and local memory (cudaFuncGetAttributes) of every
-     instantiation of Kernels C and D, failing if a float32 one spills;
+     instantiation of Kernels A (tiled), B (warp form), C and D, failing if
+     a float32 one spills; B's resident systems per SM, failing unless 4096
+     systems at K=32 fit the card in one wave;
   2. kernels against their plain PyTorch versions on the card, on inputs
      taken from a real substep of the main path (B=4096 HumanoidSpeed envs
      after a few control steps): Kernel A chol_solve at m=1 + diag
      (stable-PD) and m=33 (smooth + Delassus), Kernel B newton_qp at K=32,
      16 iterations, tol 1e-4; float64 elementwise, float32 by residual,
      objective and KKT; times of kernel, plain version and library call;
+     the control: the column kernel (chol_solve.cu's chol_solve_f32) and
+     both solve forms of A's tiled kernel, and B's block-per-system form,
+     timed through their raw entry points on the same inputs (failing
+     unless the wrappers' kernels are the faster);
   3. the main path: default_humanoid(float32) -> HumanoidSpeed ->
      reset(4096) -> 16 x step_autoreset with uniform random actions, at
      SMPLSIM_QP_ITERS=16, SMPLSIM_QP_TOL=1e-4, SMPLSIM_QP_ROWS=32; launch
@@ -26,7 +32,8 @@ Phases (any failure exits non-zero):
      inputs of the torque path (B=4096 HumanoidSpeed envs in torque control
      after 3 control steps): float64 elementwise, float32 by relative
      residual (and |L L^T - A| for C); times of kernel, plain version and
-     library call; newton_qp timed on the same path's Gram-form systems;
+     library call; newton_qp timed on the same path's Gram-form systems,
+     beside its block-per-system form;
   6. the torque path: SpeedConfig(control_mode="torque") -> reset(4096) ->
      16 x step_autoreset with the same action draw as phase 3; launch counts
      (15 cho_factor_solve + 45 solve_lower + 15 newton_qp and no chol_solve
@@ -66,7 +73,20 @@ Phases (any failure exits non-zero):
      residual within 1e-5 (and |L L^T - A| / |A| for C); C exactly zero
      above the diagonal; 7.0 and NaN above the diagonal change no bit of
      either result; a NaN system in the middle of a batch of 33 changes no
-     bit of the other 32.
+     bit of the other 32;
+ 12. edge cases of Kernels A and B against their plain versions. A: B in
+     (1, 3, 33), n in (32, 75, 180) (180 is above the tiles: the column
+     kernel, float32 only; float64 must raise), m in (1, 2, 33, 75), with
+     and without d, float64 elementwise within 1e-9, float32 by relative
+     residual within 1e-5, 7.0 and NaN above the diagonal change no bit, a
+     NaN system in a batch of 33 changes no bit of the others, all three
+     routes reached. B: K in (8, 32, 33, 64, 80) (80 is above the warp
+     form: the block form), 256 Delassus-like systems, one with no active
+     row (result 0); iters = 0 and a huge tol return max(f0, 0) * active;
+     a NaN system changes no bit of the others; float64 elementwise within
+     1e-9 where both converge, float32 objective within 1e-4 and the kernel
+     missing the tolerance on at most 1% of the systems where the plain
+     version meets it.
 
 Phases 3, 6 and 9 each set every launch count to 0 just before and read
 them just after. The third-to-last line is the `kernels` JSON object, the
@@ -96,6 +116,10 @@ TORQUE_CMP = ((0.5, 3, 1), (0.003, CFI, 2))
 N_POINTS = 4
 CMP_CFI = 2
 ILQR_ITERS = 2
+# phase 3's solver health with A's column kernel and B's block form, same
+# seed, draw and card: a kernel change that moves them moves the operating
+# point
+PREVIOUS_HEALTH = {"overflow": 0.20546, "stalled": 0.07318}
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 and float64
 # rates outside the tensor cores
 HBM_BPS = 3.35e12
@@ -182,11 +206,35 @@ def cmp_points(m):
     return torch.cat([qpos, 0.2 * randn(2, m.nv)], 1), u
 
 
-def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def chol_solve_raw(build, A, b, d, x, form=None) -> None:
+    """One uncounted launch of a raw chol_solve.cu entry point into x: the
+    column kernel (form None), or Kernel A's tiled form with a warp (0) or a
+    thread (1) per right-hand-side column."""
+    sfx = "f32" if A.dtype == torch.float32 else "f64"
+    args = (A.data_ptr(), b.data_ptr(), None if d is None else d.data_ptr(), x.data_ptr(),
+            *b.shape)
+    name = f"chol_solve_{sfx}" if form is None else f"chol_solve_tiled_{sfx}"
+    extra = () if form is None else (form,)
+    build.check(build.kernel("chol_solve.cu", name)(*args, *extra, stream_ptr()), name)
+
+
+def newton_qp_raw(build, A, b, a, f0, f, it, tol) -> None:
+    """One uncounted launch of newton_qp.cu's block-per-system form into f."""
+    name = "newton_qp_f32" if A.dtype == torch.float32 else "newton_qp_f64"
+    build.check(build.kernel("newton_qp.cu", name)(
+        A.data_ptr(), b.data_ptr(), a.data_ptr(), f0.data_ptr(), f.data_ptr(), *b.shape, it, tol,
+        stream_ptr()), name)
+
+
+def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
     """newton_qp float32: kernel against plain on the systems with finite
     inputs and plain result (with converged_only, on those where both meet
     the tolerance), times on all, the bound from the iterations this data
-    needs."""
+    needs; the block-per-system form timed on the same inputs."""
     fk = qp.newton_qp(A, b, a, f0, it, tol)
     fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
     ok = finite_rows(A, b, f0, fp)
@@ -208,7 +256,11 @@ def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
     orel = ((obj(fk) - obj(fp)).abs() / obj(fp).abs().clamp_min(1e-12))[held].amax().item()
     check(orel <= 1e-4, f"newton_qp float32 objective within {orel:.3e} <= 1e-4")
     ms = cuda_ms(lambda: qp.newton_qp(A, b, a, f0, it, tol), 20)
+    fo = torch.empty_like(b)
+    prev = cuda_ms(lambda: newton_qp_raw(build, A, b, a, f0, fo, it, tol), 20)
     plain = cuda_ms(lambda: qp.newton_qp_plain(A, b, a, f0, it, tol), 3)
+    check(ms < prev, f"newton_qp float32: the {qp.newton_qp_route(b.shape[1])} form "
+                     f"({ms:.4f} ms) is faster than the block form ({prev:.4f} ms) in this call")
     Bn, Kq = b.shape
     nbytes = 4 * Bn * (Kq * Kq + 4 * Kq)
     # the work this run's data needs: the Newton iterations each system
@@ -221,7 +273,7 @@ def time_qp(qp, A, b, a, f0, it, tol, converged_only=False) -> dict:
                 max_rel_err=((fk - fp).abs().amax(1)
                              / fp.abs().amax(1).clamp_min(1e-30))[ok].amax().item(),
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
-                iterations_mean=n_it / Bn, iterations_max=int(its.max()))
+                previous_ms=prev, iterations_mean=n_it / Bn, iterations_max=int(its.max()))
 
 
 def edge_cases(linalg, dev) -> None:
@@ -298,6 +350,119 @@ def edge_cases(linalg, dev) -> None:
     print("  ok: 7.0 and NaN above the diagonal change no bit of C's or D's results", flush=True)
 
 
+def edge_cases_ab(linalg, qp, dev) -> None:
+    """Phase 12: Kernels A and B against their plain versions at every shape
+    their dispatch tells apart, on degenerate inputs and with a NaN system
+    in the batch."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    worst = {}
+
+    def note(key, val):
+        worst[key] = max(worst.get(key, 0.0), val)
+
+    garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
+    # Kernel A: n = 180 is above the tiles (n <= 176): the column kernel,
+    # which holds it in float32 only (float64 exceeds a block's shared memory)
+    routes = set()
+    for dt in (torch.float64, torch.float32):
+        name = "float64" if dt == torch.float64 else "float32"
+        for n in (32, 75, 180):
+            if dt == torch.float64 and n == 180:
+                A = torch.eye(n, device=dev, dtype=dt).expand(1, n, n).contiguous()
+                try:
+                    linalg.chol_solve(A, torch.ones(1, n, 1, device=dev, dtype=dt))
+                except ValueError:
+                    print("  ok: chol_solve float64 at n=180 raises ValueError (a block's shared "
+                          "memory)", flush=True)
+                else:
+                    fail("chol_solve float64 at n=180 did not raise")
+                continue
+            for Bn in (1, 3, 33):
+                G = torch.randn(Bn, n, n, generator=g, device=dev, dtype=torch.float64)
+                A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
+                for m in (1, 2, 33, 75):
+                    b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=torch.float64).to(dt)
+                    routes.add((n, m, linalg.chol_solve_route(n, m, A.element_size())))
+                    for d in (None, torch.rand(Bn, n, generator=g, device=dev, dtype=dt)):
+                        shape = f"B={Bn}, n={n}, m={m}, d={'yes' if d is not None else 'no'}"
+                        xk = linalg.chol_solve(A, b, d)
+                        xp = linalg.chol_solve_plain(A, b, d)
+                        H = A if d is None else A + torch.diag_embed(d)
+                        if dt == torch.float64:
+                            note(("A", name, "elementwise"), rel_diff(xk, xp))
+                        else:
+                            note(("A", name, "residual"), rel_residual(H, xk, b))
+                        for fill in (7.0, float("nan")):
+                            if not torch.equal(linalg.chol_solve(garbage(A, fill), b, d), xk):
+                                fail(f"chol_solve {name} {shape}: {fill} above the diagonal "
+                                     "changed the result")
+                if Bn == 33:
+                    keep = torch.arange(Bn, device=dev) != Bn // 2
+                    An = A.clone()
+                    An[Bn // 2] = float("nan")
+                    for m in (1, 33):
+                        b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=dt)
+                        ok = torch.equal(linalg.chol_solve(An, b)[keep],
+                                         linalg.chol_solve(A, b)[keep])
+                        check(ok, f"chol_solve {name} n={n} m={m}: a NaN system in a batch of "
+                                  f"{Bn} leaves the others' results bit for bit")
+    print(f"  chol_solve routes (n, m, route): {sorted(routes)}", flush=True)
+    check({r for _, _, r in routes} == {"warp", "thread", "column"},
+          "the edge cases reach all three of chol_solve's routes")
+
+    # Kernel B: K = 80 is above the warp form (K <= 64): the block form
+    Bq, iters, nv = 256, 16, 75
+    for K in (8, 32, 33, 64, 80):
+        J = torch.randn(Bq, K, nv, generator=g, device=dev, dtype=torch.float64)
+        A = J @ J.mT / nv + 1e-3 * torch.eye(K, device=dev, dtype=torch.float64)
+        b = torch.randn(Bq, K, generator=g, device=dev, dtype=torch.float64)
+        act = (torch.rand(Bq, K, generator=g, device=dev) < 0.8).double()
+        act[0] = 0.0  # a system with no active row
+        f0 = torch.rand(Bq, K, generator=g, device=dev, dtype=torch.float64) - 0.3
+        f0[: Bq // 2] = 0.0
+        for dt in (torch.float64, torch.float32):
+            name = "float64" if dt == torch.float64 else "float32"
+            tag = f"K={K} ({qp.newton_qp_route(K)} form) {name}"
+            args = [t.to(dt).contiguous() for t in (A, b, act, f0)]
+            tol = 1e-12 if dt == torch.float64 else 1e-4
+            fk = qp.newton_qp(*args, iters, tol)
+            fp = qp.newton_qp_plain(*args, iters, tol)
+            check(bool(torch.isfinite(fk).all()) and bool((fk[0] == 0).all()),
+                  f"newton_qp {tag}: finite, and 0 on the system with no active row")
+            tol_sys = tol * (1.0 + args[1].abs().amax(-1))
+            ck = qp.kkt_residual(args[0], args[1], fk, args[2]) <= tol_sys
+            cp = qp.kkt_residual(args[0], args[1], fp, args[2]) <= tol_sys
+            if dt == torch.float64:
+                both = ck & cp
+                note(("B", name, "elementwise"),
+                     ((fk - fp).abs() / (1.0 + fp.abs())).amax(1)[both].max().item())
+            else:
+                obj = lambda f: (0.5 * (f * (args[0] @ f[..., None])[..., 0]).sum(-1)
+                                 - (args[1] * f).sum(-1)).double()
+                note(("B", name, "objective"),
+                     ((obj(fk) - obj(fp)).abs() / obj(fp).abs().clamp_min(1e-12)).amax().item())
+                only_p = int((cp & ~ck).sum())
+                check(only_p <= Bq // 100,
+                      f"newton_qp {tag}: the kernel misses the tolerance on at most 1% of the "
+                      f"systems where the plain version meets it ({only_p} of {int(cp.sum())})")
+            start = args[3].clamp_min(0.0) * args[2]
+            check(torch.equal(qp.newton_qp(*args, 0, tol), start),
+                  f"newton_qp {tag}: iters = 0 returns max(f0, 0) * active")
+            check(torch.equal(qp.newton_qp(*args, iters, 1e30), start),
+                  f"newton_qp {tag}: a huge tol returns max(f0, 0) * active at once")
+            An = args[0].clone()
+            An[Bq // 3] = float("nan")
+            keep = torch.arange(Bq, device=dev) != Bq // 3
+            check(torch.equal(qp.newton_qp(An, *args[1:], iters, tol)[keep], fk[keep]),
+                  f"newton_qp {tag}: a NaN system leaves the others' results bit for bit")
+    for (kern, name, what), val in sorted(worst.items()):
+        tol = {"elementwise": 1e-9, "residual": 1e-5, "objective": 1e-4}[what]
+        label = {"elementwise": "vs plain, elementwise (where both converge, for B)",
+                 "residual": "relative residual", "objective": "objective vs plain"}[what]
+        check(val <= tol, f"{'chol_solve' if kern == 'A' else 'newton_qp'} {name} {label}, "
+                          f"worst over the edge cases: {val:.3e} <= {tol:g}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -326,9 +491,15 @@ def main() -> None:
     for a in attrs:
         print(f"  {a}")
     spilled = [a for a in attrs if a["dtype"] == "float32" and a["local_bytes"] > 0]
-    check(not spilled, f"no float32 instantiation of Kernels C and D uses local memory "
+    check(not spilled, f"no float32 instantiation of Kernels A, B, C and D uses local memory "
                        f"({len(attrs)} instantiations; float64 with local memory: "
                        f"{sum(a['local_bytes'] > 0 for a in attrs)})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = next(a["resident_per_sm"] for a in attrs
+                    if a["kernel"] == "newton_qp" and a["dtype"] == "float32" and a["R"] == 1)
+    check(resident * sms >= B_MAIN,
+          f"newton_qp float32 at K <= 32: {resident} systems resident per SM x {sms} SMs "
+          f">= {B_MAIN}: the main path's batch runs in one wave")
 
     model = registry.default_humanoid(torch.float32)
     env = HumanoidSpeed(model, **QP)
@@ -376,15 +547,31 @@ def main() -> None:
                 check(rel <= 1e-9, f"chol_solve[{name}] float64 vs plain: {rel:.3e} <= 1e-9")
             else:
                 H = Ad if dd is None else Ad + torch.diag_embed(dd)
-                res = ((H @ xk - bd).abs().amax((1, 2))
-                       / (H.abs().amax((1, 2)) * xk.abs().amax((1, 2))
-                          + bd.abs().amax((1, 2)))).amax().item()
+                resid = lambda x_: ((H @ x_ - bd).abs().amax((1, 2))
+                                    / (H.abs().amax((1, 2)) * x_.abs().amax((1, 2))
+                                       + bd.abs().amax((1, 2)))).amax().item()
+                res = resid(xk)
                 check(res <= 1e-5, f"chol_solve[{name}] float32 relative residual "
                                    f"{res:.3e} <= 1e-5")
                 err = (xk - xp).abs().amax().item()
                 rel = ((xk - xp).abs().amax((1, 2)) / xp.abs().amax((1, 2))).amax().item()
                 ms = cuda_ms(lambda: linalg.chol_solve(Ad, bd, dd), 20)
                 plain = cuda_ms(lambda: linalg.chol_solve_plain(Ad, bd, dd), 3)
+                # the control: the column kernel and both solve forms of the
+                # tiled kernel through their raw entry points, same inputs
+                xo = torch.empty_like(bd)
+                prev = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo), 20)
+                forms = {}
+                for form, fname in ((0, "warp"), (1, "thread")):
+                    chol_solve_raw(_build, Ad, bd, dd, xo, form)
+                    fres = resid(xo)
+                    check(fres <= 1e-5, f"chol_solve[{name}] float32, {fname} form: relative "
+                                        f"residual {fres:.3e} <= 1e-5")
+                    forms[fname] = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo, form), 20)
+                route = linalg.chol_solve_route(*bd.shape[1:], 4)
+                check(ms < prev, f"chol_solve[{name}]: the tiled kernel ({route} form, {ms:.4f} "
+                                 f"ms) is faster than the column kernel ({prev:.4f} ms) in this "
+                                 "call")
 
                 def library():
                     L = torch.linalg.cholesky(H if dd is None else Ad + torch.diag_embed(dd))
@@ -395,11 +582,13 @@ def main() -> None:
                 flops = Bn * (n ** 3 / 3 + 2 * n * n * m)
                 bms, by = bound_ms(nbytes, flops, dt)
                 report[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
-                                    library_ms=lib, bound_ms=bms, bound_by=by)
-                print(f"  chol_solve[{name}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                      f"library {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
-                      f"max|kernel-plain| {err:.3e} (per system, relative to max|plain|: "
-                      f"{rel:.3e})", flush=True)
+                                    library_ms=lib, bound_ms=bms, bound_by=by, route=route,
+                                    previous_ms=prev, forms_ms=forms)
+                print(f"  chol_solve[{name}] f32: kernel {ms:.4f} ms ({route} form; raw warp "
+                      f"form {forms['warp']:.4f}, thread form {forms['thread']:.4f}; column "
+                      f"kernel {prev:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}), max|kernel-plain| {err:.3e} (per system, relative "
+                      f"to max|plain|: {rel:.3e})", flush=True)
 
     for dt in (torch.float64, torch.float32):
         A, b = A_qp.to(dt).contiguous(), b_qp.to(dt).contiguous()
@@ -444,9 +633,10 @@ def main() -> None:
               f"where the plain version meets it ({only_p})")
         if dt != torch.float32:
             continue
-        report["qp"] = time_qp(qp, A, b, a, f0, it, tol)
+        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol)
         r = report["qp"]
-        print(f"  newton_qp f32: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        print(f"  newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), iterations mean "
               f"{r['iterations_mean']:.2f} max {r['iterations_max']}, max|kernel-plain| "
               f"{r['max_abs_err']:.3e} (per system, relative to max|plain|: "
@@ -480,8 +670,9 @@ def main() -> None:
     rate = B_MAIN * STEPS / elapsed
     print(f"  {STEPS} control steps x {B_MAIN} envs in {elapsed:.3f} s: {rate:.1f} env-steps/s "
           f"({CFI} substeps each) on {card}")
-    print(f"  overflow fraction {(overflow / STEPS).item():.5f}, stalled fraction "
-          f"{(stalled / STEPS).item():.5f}, done at the last step "
+    print(f"  overflow fraction {(overflow / STEPS).item():.5f} (with the previous kernels "
+          f"{PREVIOUS_HEALTH['overflow']:.5f}), stalled fraction {(stalled / STEPS).item():.5f} "
+          f"({PREVIOUS_HEALTH['stalled']:.5f}), done at the last step "
           f"{state.done.float().mean().item():.4f}", flush=True)
 
     # ------------------------------------------------------- 4. card vs CPU
@@ -613,10 +804,11 @@ def main() -> None:
 
     # flung envs stall at the iteration cap, where the two summation orders
     # stop at different iterates: held where both meet the tolerance
-    report["qp_torque"] = time_qp(qp, A_g.contiguous(), b_g.contiguous(), rows.actf,
+    report["qp_torque"] = time_qp(qp, _build, A_g.contiguous(), b_g.contiguous(), rows.actf,
                                   rows.f0, QP["qp_iters"], QP["qp_tol"], converged_only=True)
     r = report["qp_torque"]
-    print(f"  newton_qp f32 (torque path, Gram form): kernel {r['ms']:.4f} ms, plain "
+    print(f"  newton_qp f32 (torque path, Gram form): kernel {r['ms']:.4f} ms (block form "
+          f"{r['previous_ms']:.4f}), plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, iterations mean "
           f"{r['iterations_mean']:.2f} max {r['iterations_max']}", flush=True)
 
@@ -855,6 +1047,10 @@ def main() -> None:
     # ------------------------------------------------ 11. C and D edge cases
     print("phase 11: kernels C and D on edge cases", flush=True)
     edge_cases(linalg, dev)
+
+    # ------------------------------------------------ 12. A and B edge cases
+    print("phase 12: kernels A and B on edge cases", flush=True)
+    edge_cases_ab(linalg, qp, dev)
 
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS

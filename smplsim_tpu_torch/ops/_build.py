@@ -32,6 +32,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "chol_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "chol_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "chol_solve_tiled_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "chol_solve_tiled_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "chol_solve_tiled_attrs": (_I, _P),
     "cho_factor_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cho_factor_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cholesky_f32": (_P, _P, _I, _I, _P),
@@ -42,6 +45,9 @@ _SIGNATURES = {
     "cho_factor_solve_attrs": (_I, _P),
     "newton_qp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
     "newton_qp_f64": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
+    "newton_qp_warp_f32": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
+    "newton_qp_warp_f64": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P),
+    "newton_qp_warp_attrs": (_I, _P),
 }
 
 

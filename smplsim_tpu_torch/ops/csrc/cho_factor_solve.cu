@@ -11,7 +11,8 @@
 // flops, so 4096 systems are bound by bytes at 0.042 ms; the factor is n
 // dependent column steps, each a rank-1 update of the trailing triangle.
 //
-// Design: one block per system, the factor in registers.
+// Design: one block per system, the factor in registers (tri::factor_tiles
+// in tri_warp.cuh, which Kernel A shares).
 //   * Load: A's lower triangle, packed, into shared memory (tri_warp.cuh):
 //     batches of plain loads in flight together, no division per element.
 //   * Ownership: the lower triangle is cut into 4x4 tiles, numbered down the
@@ -46,49 +47,9 @@
 
 namespace {
 
-using tri::load4;
 using tri::tri;
 
 constexpr int kMaxThreads = 256;
-
-// The 4x4 lower Cholesky factor l of the tile d (row-major, lower part
-// read) and the reciprocals of its diagonal.
-template <typename T>
-__device__ __forceinline__ void chol4(const T (&d)[4][4], T (&l)[4][4], T (&inv)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    T s = d[c][c];
-#pragma unroll
-    for (int q = 0; q < c; ++q) s -= l[c][q] * l[c][q];
-    l[c][c] = tri::root(s);
-    inv[c] = tri::div(T(1), l[c][c]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (r < c) {
-        l[r][c] = T(0);
-      } else if (r > c) {
-        T v = d[r][c];
-#pragma unroll
-        for (int q = 0; q < c; ++q) v -= l[r][q] * l[c][q];
-        l[r][c] = v * inv[c];
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* p, T (&v)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) load4(p + 4 * r, v[r]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_tile(T* p, const T (&v)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) p[4 * r + c] = v[r][c];
-}
 
 template <typename T, int TPT, int R>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -106,105 +67,11 @@ cho_factor_solve_kernel(const T* __restrict__ A, const T* __restrict__ b, T* __r
   // the loader's registers below the factor's
   tri::load_lower<T, false, 8>(Lp, A + (size_t)sys * n * n, n, tid, nt);
   __syncthreads();
-
-  int ti[TPT], tj[TPT];
-  bool own[TPT];
-  T a[TPT][4][4];
-#pragma unroll
-  for (int t = 0; t < TPT; ++t) {
-    int rem = tid + t * nt, j = 0;
-    while (j < ntr && rem >= ntr - j) {
-      rem -= ntr - j;
-      ++j;
-    }
-    own[t] = j < ntr;
-    tj[t] = j;
-    ti[t] = j + rem;
-    // rows and columns past n: identity, which keeps the last diagonal
-    // tile's factor finite and leaves the others untouched
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * ti[t] + r, jj = 4 * tj[t] + c;
-        a[t][r][c] = !own[t] || jj > i ? T(0)
-                     : i >= n          ? T(i == jj)
-                                       : Lp[tri(i) + jj];
-      }
-    if (own[t] && ti[t] == 0) store_tile(D, a[t]);
-  }
-  __syncthreads();
-
-  for (int p = 0; p < ntr; ++p) {
-    // the panel: tiles (i, p) become L_ip = A_ip L_pp^-T, L_pp from the
-    // diagonal tile, which every owner in the panel factors for itself
-#pragma unroll
-    for (int t = 0; t < TPT; ++t) {
-      if (!own[t] || tj[t] != p) continue;
-      T d[4][4], l[4][4], inv[4];
-      load_tile(D, d);
-      chol4(d, l, inv);
-      if (ti[t] == p) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) a[t][r][c] = l[r][c];
-      } else {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            T v = a[t][r][c];
-#pragma unroll
-            for (int q = 0; q < c; ++q) v -= a[t][r][q] * l[c][q];
-            a[t][r][c] = v * inv[c];
-          }
-      }
-      store_tile(PB + 16 * ti[t], a[t]);
-    }
-    __syncthreads();
-    // the trailing update A_ij -= L_ip L_jp^T, 64 FMAs per tile
-#pragma unroll
-    for (int t = 0; t < TPT; ++t) {
-      if (!own[t] || tj[t] <= p) continue;
-      T li[4][4], lj[4][4];
-      load_tile(PB + 16 * ti[t], li);
-      load_tile(PB + 16 * tj[t], lj);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a[t][r][c] -= li[r][q] * lj[c][q];
-      if (ti[t] == p + 1 && tj[t] == p + 1) store_tile(D, a[t]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int t = 0; t < TPT; ++t)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = 4 * ti[t] + r, j = 4 * tj[t] + c;
-        if (own[t] && i < n && j <= i) Lp[tri(i) + j] = a[t][r][c];
-      }
-  __syncthreads();
+  tri::factor_tiles<T, TPT, false>(D, PB, Lp, nullptr, n, tid, nt);
 
   const T* bs = b + (size_t)sys * n * m;
   T* xs = x + (size_t)sys * n * m;
-  if (warp < m) {
-    T inv[R];
-    tri::pivots<T, R>(Lp, n, lane, inv);
-    for (int c = warp; c < m; c += nwarps) {
-      T X[R];
-      tri::load_col<T, R>(bs, X, n, m, c, lane);
-      tri::forward<T, R>(Lp, inv, X, n, lane);
-      tri::backward<T, R>(Lp, inv, X, n, lane);
-      tri::store_col<T, R>(xs, X, n, m, c, lane);
-    }
-  }
+  if (warp < m) tri::cho_solve_warps<T, R>(Lp, bs, xs, n, m, warp, nwarps, lane);
   T* Ls = Lout + (size_t)sys * n * n;
 #pragma unroll 2
   for (int i = warp; i < n; i += nwarps)
@@ -219,8 +86,7 @@ template <typename T, int TPT, int R>
 int run(const void* A, const void* b, void* L, void* x, int B, int n, int m,
         cudaStream_t stream) {
   const int ntr = (n + 3) / 4;
-  const int tiles = ntr * (ntr + 1) / 2;
-  int threads = ((tiles + TPT - 1) / TPT + 31) / 32 * 32;
+  const int threads = tri::tile_threads(n, TPT);
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * (16 + 16 * (size_t)ntr + (size_t)tri(n));
   cudaError_t err = tri::allow_smem(cho_factor_solve_kernel<T, TPT, R>, smem);

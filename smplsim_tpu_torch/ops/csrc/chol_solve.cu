@@ -1,34 +1,59 @@
 // Batched fused SPD factor + solve for Hopper (sm_90a):
 //     x = (A + diag(d))^-1 b        A (B,n,n), b (B,n,m), d (B,n) or null,
-// and, through the same device code with the factor stored,
-//     L = chol(A)                   (cholesky: no right-hand side, m = 0).
+// and the factor alone (cholesky: L = chol(A), no right-hand side).
 //
-// chol_solve_* replaces the TPU kernel
+// chol_solve_tiled_* (Kernel A) replaces the TPU kernel
 // smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes (body
-// _chol_solve_only_kernel); cholesky_* replaces
-// linalg_kernels.py::cholesky_batched (body _chol_kernel), the factor alone,
-// which backs the contact QP's implicit-function derivative (the masked
-// K x K system H = A o (a a^T) + diag(1 - a)). One thread block owns one
-// system: the lower triangle of H = A + diag(d) and the right-hand side are
-// copied into shared memory once, factored in place by a right-looking
-// column Cholesky (threads over the trailing triangle), then solved by
-// forward and back substitution (threads over rows x rhs columns). Each
-// input byte is read once and x is written once; chol_solve keeps the factor
-// on chip, cholesky writes it out once as a full (n,n) matrix with exact
-// zeros above the diagonal. (cho_factor_solve.cu holds Kernel C, which
-// returns both, on a design of its own.)
+// _chol_solve_only_kernel). The uhc_pd path calls it twice per substep, at
+// n=75: m=1 with d = dt kd (stable PD) and m=33 (smooth + Delassus).
 //
 // What bounds it on the H100: at n=75 a system moves 12 KB (m=1) to 31 KB
-// (m=33) in float32 and needs 1.5e5 to 5.1e5 flops, light on both, so the
-// kernel is latency-bound on the 3n block-wide barriers of the factor and
-// the two substitutions (cholesky at K=32: 6.2 KB, 1.1e4 flops and the
-// factor's 3K barriers alone), and on the r^2 index walk of each trailing
-// update. The design keeps all of the recurrence in shared memory so that
-// no barrier waits on device memory; the TPU's panel blocking, rhs chunking
-// and 128-lane padding (cholesky_batched pads n to a multiple of 8 with
-// identity) are VMEM and lane devices and are not carried over.
+// (m=33) in float32 (A's triangle, d, b and x) and needs 1.5e5 to 5.1e5
+// flops, so 4096 systems are bound by bytes at 0.015 and 0.038 ms; the work
+// itself is n dependent pivots in the factor and n more in each
+// substitution, so the time is the latency of one system times the waves
+// of resident blocks.
+//
+// Design (one block per system, no block barrier after the factor):
+//   * Load: A's lower triangle, packed, into shared memory (tri_warp.cuh),
+//     batches of plain loads in flight together, no division per element.
+//   * Factor: Kernel C's tiled register factor (tri::factor_tiles): 4x4
+//     tiles of the triangle in registers, ownership found once, 4-column
+//     panels with two block barriers each, the diagonal tile factored in
+//     registers by every panel owner. The diagonal shift d is added into
+//     the diagonal tiles as they are loaded. The factor never leaves the
+//     chip.
+//   * Solve, by m. m <= 4 (kThreadCols false): a warp per right-hand-side
+//     column on the factor packed in the tri layout, x in registers, one
+//     shuffle and one FMA per row per step (tri::forward/backward, Kernel
+//     C's and D's). m > 4: a thread per column on the factor in the
+//     row-aligned layout, rows in 8-row register blocks
+//     (tri::cols_forward/cols_backward, Kernel D's wide form); the forward
+//     pass leaves y in the thread's column of Xs and the backward pass
+//     overwrites it with x.
+//   * Float32 uses the special-function reciprocal and square root with
+//     Newton steps (tri::div, tri::root): no call to the slow-path
+//     subroutines, no local memory. FP32 FMA, no TF32.
+// The tiles hold n <= 176; above that ops/linalg.py dispatches by shape to
+// the column kernel below.
+//
+// chol_solve_kernel, the column kernel, serves chol_solve_* (every n whose
+// system fits a block's shared memory) and cholesky_* (Kernel E, replacing
+// linalg_kernels.py::cholesky_batched, body _chol_kernel: the factor alone,
+// which backs the contact QP's implicit-function derivative). One block per
+// system: the lower triangle of H = A + diag(d) and the right-hand side in
+// shared memory, a right-looking column Cholesky (threads over the trailing
+// triangle, 3n block barriers), then forward and back substitution
+// (threads over rows x rhs columns, 2n barriers each). cholesky writes the
+// factor out once as a full (n,n) matrix with exact zeros above the
+// diagonal. It is bound by that barrier chain (cholesky at K=32: 6.2 KB,
+// 1.1e4 flops and the factor's 3K barriers alone). The TPU's panel
+// blocking, rhs chunking and 128-lane padding are VMEM and lane devices and
+// are not carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tri_warp.cuh"
 
 namespace {
 
@@ -124,9 +149,157 @@ int launch(const void* A, const void* b, const void* diag, void* x, void* L, int
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------- Kernel A
+using tri::rowoff;
+using tri::tri;
+
+constexpr int kTiledThreads = 256;
+
+// entries of the factor's region in shared memory: the packed triangle, or
+// with kThreadCols the row-aligned one over n rounded up to 8 rows
+template <bool kThreadCols>
+__host__ __device__ __forceinline__ int lp_entries(int n) {
+  const int n8 = (n + tri::kRB - 1) / tri::kRB * tri::kRB;
+  return kThreadCols ? (rowoff(n8) > tri(n) ? rowoff(n8) : tri(n)) : tri(n);
+}
+
+template <typename T, int TPT, int R, bool kThreadCols>
+__global__ void __launch_bounds__(kTiledThreads)
+chol_solve_tiled_kernel(const T* __restrict__ A, const T* __restrict__ b,
+                        const T* __restrict__ diag, T* __restrict__ x, int n, int m, int mw) {
+  extern __shared__ __align__(16) unsigned char smem_tiled[];
+  const int ntr = (n + 3) >> 2;
+  T* D = reinterpret_cast<T*>(smem_tiled);  // the next diagonal tile (4x4)
+  T* PB = D + 16;                         // the panel's factor tiles (ntr x 4x4)
+  T* Lp = PB + 16 * ntr;                  // the triangle, then the factor
+  const int sys = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+
+  tri::load_lower<T, false, 8>(Lp, A + (size_t)sys * n * n, n, tid, nt);
+  __syncthreads();
+  tri::factor_tiles<T, TPT, kThreadCols>(D, PB, Lp, diag ? diag + (size_t)sys * n : nullptr, n,
+                                         tid, nt);
+
+  const T* bs = b + (size_t)sys * n * m;
+  T* xs = x + (size_t)sys * n * m;
+  if (!kThreadCols) {
+    if (warp < m) tri::cho_solve_warps<T, R>(Lp, bs, xs, n, m, warp, nwarps, lane);
+  } else {
+    T* Xs = Lp + lp_entries<true>(n);  // (n8, mw): y, then x, by column
+    for (int c = tid; c < mw; c += nt) {
+      const bool live = c < m;
+      tri::cols_forward<T>(
+          Lp, Xs, mw, c, n, [&](int i) { return live ? bs[(size_t)i * m + c] : T(0); },
+          [](int, T) {});
+      tri::cols_backward<T>(
+          Lp, Xs, mw, c, n, [&](int i) { return Xs[i * mw + c]; },
+          [&](int i, T v) {
+            if (live) xs[(size_t)i * m + c] = v;
+          });
+    }
+  }
+}
+
+// threads and rhs width of the thread-per-column form: a thread per column
+// up to 256, every column slot of Xs covered by the loop over tid
+inline int tiled_threads(int n, int m, int tpt, bool thread_cols, int* mw) {
+  int solve = thread_cols ? (m + 31) / 32 * 32 : 32 * (m < 8 ? m : 8);
+  if (solve > kTiledThreads) solve = kTiledThreads;
+  if (solve < 32) solve = 32;
+  *mw = thread_cols ? (m + solve - 1) / solve * solve : 0;
+  const int f = tri::tile_threads(n, tpt);
+  return f > solve ? f : solve;
+}
+
+template <typename T, int TPT, int R, bool kThreadCols>
+int run_tiled(const void* A, const void* b, const void* diag, void* x, int B, int n, int m,
+              cudaStream_t stream) {
+  int mw = 0;
+  const int threads = tiled_threads(n, m, TPT, kThreadCols, &mw);
+  if (threads > kTiledThreads) return (int)cudaErrorInvalidValue;
+  const int n8 = (n + tri::kRB - 1) / tri::kRB * tri::kRB;
+  const size_t smem = sizeof(T) * (16 + 16 * (size_t)((n + 3) / 4) +
+                                   (size_t)lp_entries<kThreadCols>(n) + (size_t)n8 * mw);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = tri::allow_smem(chol_solve_tiled_kernel<T, TPT, R, kThreadCols>, smem);
+  if (err != cudaSuccess) return (int)err;
+  chol_solve_tiled_kernel<T, TPT, R, kThreadCols><<<B, threads, smem, stream>>>(
+      (const T*)A, (const T*)b, (const T*)diag, (T*)x, n, m, mw);
+  return (int)cudaGetLastError();
+}
+
+// tiles per thread TPT and solve rows per lane R by n, as Kernel C (n <=
+// 176), but for the thread-per-column form at n <= 64, which takes TPT 2:
+// at TPT 1 ptxas holds it to 64 registers and spills
+template <typename T, bool kThreadCols>
+int launch_tiled(const void* A, const void* b, const void* diag, void* x, int B, int n, int m,
+                 cudaStream_t s) {
+  if (kThreadCols && n <= 64) return run_tiled<T, 2, 1, true>(A, b, diag, x, B, n, m, s);
+  if (n <= 32) return run_tiled<T, 1, 1, kThreadCols>(A, b, diag, x, B, n, m, s);
+  if (n <= 64) return run_tiled<T, 1, 2, kThreadCols>(A, b, diag, x, B, n, m, s);
+  if (n <= 96) return run_tiled<T, 2, kThreadCols ? 1 : 3, kThreadCols>(A, b, diag, x, B, n, m, s);
+  if (n <= 128) return run_tiled<T, 4, kThreadCols ? 1 : 4, kThreadCols>(A, b, diag, x, B, n, m, s);
+  if (n <= 176) return run_tiled<T, 4, kThreadCols ? 1 : 6, kThreadCols>(A, b, diag, x, B, n, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int tiled(const void* A, const void* b, const void* diag, void* x, int B, int n, int m, int form,
+          void* stream) {
+  if (B <= 0 || n <= 0 || m <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 0) return launch_tiled<T, false>(A, b, diag, x, B, n, m, s);
+  if (form == 1) return launch_tiled<T, true>(A, b, diag, x, B, n, m, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+struct Inst {
+  const void* fn;
+  int dtype_bytes, tpt, r;  // r: warp-form rows per lane, 0 for a thread per column
+};
+
+#define CS_WARP(T, TPT, R) {(const void*)chol_solve_tiled_kernel<T, TPT, R, false>, (int)sizeof(T), TPT, R}
+#define CS_COLS(T, TPT) {(const void*)chol_solve_tiled_kernel<T, TPT, 1, true>, (int)sizeof(T), TPT, 0}
+const Inst kInsts[] = {
+    CS_WARP(float, 1, 1),  CS_WARP(float, 1, 2),  CS_WARP(float, 2, 3),  CS_WARP(float, 4, 4),
+    CS_WARP(float, 4, 6),  CS_COLS(float, 2),     CS_COLS(float, 4),     CS_WARP(double, 1, 1),
+    CS_WARP(double, 1, 2), CS_WARP(double, 2, 3), CS_WARP(double, 4, 4), CS_WARP(double, 4, 6),
+    CS_COLS(double, 2),    CS_COLS(double, 4)};
+#undef CS_WARP
+#undef CS_COLS
+
 }  // namespace
 
-// The launch goes to `stream` on the current device; returns cudaGetLastError().
+// Kernel A: x = (A + diag(d))^-1 b for n <= 176; form 0 solves with a warp
+// per rhs column, 1 with a thread per column. The launch goes to `stream` on
+// the current device; returns cudaGetLastError() (cudaErrorInvalidValue for
+// a shape the tiles or a block's shared memory do not hold).
+extern "C" int chol_solve_tiled_f32(const void* A, const void* b, const void* diag, void* x,
+                                    int B, int n, int m, int form, void* stream) {
+  return tiled<float>(A, b, diag, x, B, n, m, form, stream);
+}
+
+extern "C" int chol_solve_tiled_f64(const void* A, const void* b, const void* diag, void* x,
+                                    int B, int n, int m, int form, void* stream) {
+  return tiled<double>(A, b, diag, x, B, n, m, form, stream);
+}
+
+// Instantiation i of Kernel A: out = {registers per thread, local memory
+// bytes per thread, bytes of the element type, TPT, R (0: a thread per
+// column)}. Returns -1 past the last one, else a CUDA error code.
+extern "C" int chol_solve_tiled_attrs(int i, int* out) {
+  if (i < 0 || i >= (int)(sizeof(kInsts) / sizeof(kInsts[0]))) return -1;
+  const Inst& k = kInsts[i];
+  out[2] = k.dtype_bytes;
+  out[3] = k.tpt;
+  out[4] = k.r;
+  return tri::attributes(k.fn, out);
+}
+
+// The column kernel: x = (A + diag(d))^-1 b for any n whose system fits a
+// block's shared memory. The launch goes to `stream` on the current device;
+// returns cudaGetLastError().
 extern "C" int chol_solve_f32(const void* A, const void* b, const void* diag, void* x,
                               int B, int n, int m, void* stream) {
   return launch<float, false>(A, b, diag, x, nullptr, B, n, m, stream);

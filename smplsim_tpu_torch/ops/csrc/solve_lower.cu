@@ -25,7 +25,8 @@
 // one. At m = 1 four systems share a block, each warp on its own: a tail
 // warp past the batch returns, since nothing waits for it.
 //
-// m > 4, a thread per column (solve_lower_cols_kernel): one block per
+// m > 4, a thread per column (solve_lower_cols_kernel, on
+// tri::cols_forward/cols_backward, which Kernel A shares): one block per
 // system, thread c owns rhs column c, and the rows go in blocks of 8 kept in
 // registers: the finished rows' contribution is a loop of 8-row by 4-column
 // products (eight vector loads of L, four of x from shared memory, 32 FMAs),
@@ -45,14 +46,12 @@
 
 namespace {
 
-using tri::div;
-using tri::load4;
+using tri::kRB;
 using tri::rowoff;
 using tri::tri;
 
 constexpr int kSystemsPerBlock = 4;  // warp kernel, one warp per system at m = 1
 constexpr int kColsThreads = 256;    // column kernel, most threads per block
-constexpr int kRB = 8;               // column kernel, rows per register block
 
 template <typename T, int R>
 __global__ void __launch_bounds__(32 * kSystemsPerBlock)
@@ -98,67 +97,14 @@ solve_lower_cols_kernel(const T* __restrict__ L, const T* __restrict__ b, T* __r
 
   const T* bs = b + (size_t)sys * n * m;
   T* xs = x + (size_t)sys * n * m;
-  // rows i >= n of the last block hold garbage: they are never stored, and
-  // no row < n reads them
   for (int c = tid; c < mw; c += nt) {
     const bool live = c < m;
-    if (!trans) {
-      for (int i0 = 0; i0 < n; i0 += kRB) {
-        T acc[kRB];
-#pragma unroll
-        for (int r = 0; r < kRB; ++r)
-          acc[r] = live && i0 + r < n ? bs[(size_t)(i0 + r) * m + c] : T(0);
-        for (int j = 0; j < i0; j += 4) {
-          T xq[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) xq[q] = Xs[(j + q) * mw + c];
-#pragma unroll
-          for (int r = 0; r < kRB; ++r) {
-            T lq[4];
-            load4(Lr + rowoff(i0 + r) + j, lq);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r] -= lq[q] * xq[q];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRB; ++r) {
-          const T* row = Lr + rowoff(i0 + r) + i0;
-#pragma unroll
-          for (int q = 0; q < r; ++q) acc[r] -= row[q] * acc[q];
-          acc[r] = div(acc[r], row[r]);
-          Xs[(i0 + r) * mw + c] = acc[r];
-          if (live && i0 + r < n) xs[(size_t)(i0 + r) * m + c] = acc[r];
-        }
-      }
-    } else {
-      for (int i0 = n8 - kRB; i0 >= 0; i0 -= kRB) {
-        T acc[kRB];
-#pragma unroll
-        for (int r = 0; r < kRB; ++r)
-          acc[r] = live && i0 + r < n ? bs[(size_t)(i0 + r) * m + c] : T(0);
-        for (int j = i0 + kRB; j < n; ++j) {
-          const T xj = Xs[j * mw + c];
-          T lo[4], hi[4];
-          load4(Lr + rowoff(j) + i0, lo);
-          load4(Lr + rowoff(j) + i0 + 4, hi);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc[r] -= lo[r] * xj;
-            acc[r + 4] -= hi[r] * xj;
-          }
-        }
-#pragma unroll
-        for (int r = kRB - 1; r >= 0; --r) {
-          const int i = i0 + r;
-#pragma unroll
-          for (int q = r + 1; q < kRB; ++q)
-            if (i0 + q < n) acc[r] -= Lr[rowoff(i0 + q) + i] * acc[q];
-          acc[r] = div(acc[r], Lr[rowoff(i) + i]);
-          Xs[i * mw + c] = acc[r];
-          if (live && i < n) xs[(size_t)i * m + c] = acc[r];
-        }
-      }
-    }
+    auto rhs = [&](int i) { return live ? bs[(size_t)i * m + c] : T(0); };
+    auto out = [&](int i, T v) {
+      if (live) xs[(size_t)i * m + c] = v;
+    };
+    if (trans) tri::cols_backward<T>(Lr, Xs, mw, c, n, rhs, out);
+    else tri::cols_forward<T>(Lr, Xs, mw, c, n, rhs, out);
   }
 }
 

@@ -1,6 +1,8 @@
-// Device code shared by Kernel D (solve_lower.cu) and Kernel C
-// (cho_factor_solve.cu): the packed lower triangle in shared memory, its
-// load, and the warp-synchronous triangular substitutions.
+// Device code shared by Kernels A (chol_solve.cu), B (newton_qp.cu), C
+// (cho_factor_solve.cu) and D (solve_lower.cu): the packed lower triangle in
+// shared memory, its load, the warp-synchronous triangular substitutions
+// (C, A at m <= 4, D at m <= 4, B), the thread-per-column substitutions (D
+// and A at m > 4) and the tiled register factor (C and A).
 //
 // Layout: the lower triangle of an (n,n) matrix packed row by row, (i,j) at
 // tri(i) + j. Triangular numbers taken mod 32 run through all 32 banks for
@@ -187,6 +189,245 @@ __device__ __forceinline__ void store_col(T* __restrict__ x, const T (&X)[R], in
   }
 }
 
+// ---------------------------------------------------------------------------
+// Thread-per-column substitutions (D and A at m > 4). Thread c owns
+// right-hand-side column c; the rows go in blocks of kRB kept in registers.
+// Lr is the row-aligned lower triangle (rowoff) with rows padded to n8 = n
+// rounded up to kRB; Xs (n8, mw) holds the finished rows of every column,
+// and a thread touches only its own column of it, so no barrier is needed.
+// rhs(i) gives row i < n of the right-hand side, out(i, v) takes row i < n
+// of the solution. Rows n..n8-1 of the last block hold garbage: they are
+// never passed to out, and no row < n reads them.
+constexpr int kRB = 8;
+
+// L x = rhs. The finished rows' contribution is a loop of 8-row by 4-column
+// products: eight vector loads of L, four loads of x, 32 FMAs.
+template <typename T, class Rhs, class Out>
+__device__ __forceinline__ void cols_forward(const T* Lr, T* Xs, int mw, int c, int n, Rhs rhs,
+                                             Out out) {
+  for (int i0 = 0; i0 < n; i0 += kRB) {
+    T acc[kRB];
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) acc[r] = i0 + r < n ? rhs(i0 + r) : T(0);
+    for (int j = 0; j < i0; j += 4) {
+      T xq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) xq[q] = Xs[(j + q) * mw + c];
+#pragma unroll
+      for (int r = 0; r < kRB; ++r) {
+        T lq[4];
+        load4(Lr + rowoff(i0 + r) + j, lq);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r] -= lq[q] * xq[q];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) {
+      const T* row = Lr + rowoff(i0 + r) + i0;
+#pragma unroll
+      for (int q = 0; q < r; ++q) acc[r] -= row[q] * acc[q];
+      acc[r] = div(acc[r], row[r]);
+      Xs[(i0 + r) * mw + c] = acc[r];
+      if (i0 + r < n) out(i0 + r, acc[r]);
+    }
+  }
+}
+
+// L^T x = rhs, from the last block up. rhs may read Xs itself (the rows of
+// the current block are read before they are overwritten).
+template <typename T, class Rhs, class Out>
+__device__ __forceinline__ void cols_backward(const T* Lr, T* Xs, int mw, int c, int n, Rhs rhs,
+                                              Out out) {
+  const int n8 = (n + kRB - 1) / kRB * kRB;
+  for (int i0 = n8 - kRB; i0 >= 0; i0 -= kRB) {
+    T acc[kRB];
+#pragma unroll
+    for (int r = 0; r < kRB; ++r) acc[r] = i0 + r < n ? rhs(i0 + r) : T(0);
+    for (int j = i0 + kRB; j < n; ++j) {
+      const T xj = Xs[j * mw + c];
+      T lo[4], hi[4];
+      load4(Lr + rowoff(j) + i0, lo);
+      load4(Lr + rowoff(j) + i0 + 4, hi);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r] -= lo[r] * xj;
+        acc[r + 4] -= hi[r] * xj;
+      }
+    }
+#pragma unroll
+    for (int r = kRB - 1; r >= 0; --r) {
+      const int i = i0 + r;
+#pragma unroll
+      for (int q = r + 1; q < kRB; ++q)
+        if (i0 + q < n) acc[r] -= Lr[rowoff(i0 + q) + i] * acc[q];
+      acc[r] = div(acc[r], Lr[rowoff(i) + i]);
+      Xs[i * mw + c] = acc[r];
+      if (i < n) out(i, acc[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tiled register factor of Kernels C and A (see cho_factor_solve.cu for
+// the design). The 4x4 lower Cholesky factor l of the tile d (row-major,
+// lower part read) and the reciprocals of its diagonal:
+template <typename T>
+__device__ __forceinline__ void chol4(const T (&d)[4][4], T (&l)[4][4], T (&inv)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    T s = d[c][c];
+#pragma unroll
+    for (int q = 0; q < c; ++q) s -= l[c][q] * l[c][q];
+    l[c][c] = root(s);
+    inv[c] = div(T(1), l[c][c]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (r < c) {
+        l[r][c] = T(0);
+      } else if (r > c) {
+        T v = d[r][c];
+#pragma unroll
+        for (int q = 0; q < c; ++q) v -= l[r][q] * l[c][q];
+        l[r][c] = v * inv[c];
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* p, T (&v)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) load4(p + 4 * r, v[r]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tile(T* p, const T (&v)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) p[4 * r + c] = v[r][c];
+}
+
+// Factor H = A + diag(ds) (ds may be null) in place. On entry Lp holds A's
+// packed lower triangle (tri layout, after a barrier); on exit it holds L,
+// packed in the tri layout or, with kRowAligned, in the row-aligned one
+// (then Lp must have room for rowoff(n rounded up to 8) entries), followed
+// by a barrier. D (16 entries) and PB (16 (n+3)/4 entries) are scratch,
+// all three 16-byte aligned. Thread t of nt keeps tiles t, t + nt, ...
+// (TPT of them, numbered down the tile columns) in registers; TPT nt must
+// cover the (n+3)/4 ((n+3)/4 + 1) / 2 tiles.
+template <typename T, int TPT, bool kRowAligned>
+__device__ __forceinline__ void factor_tiles(T* D, T* PB, T* Lp, const T* __restrict__ ds, int n,
+                                             int tid, int nt) {
+  const int ntr = (n + 3) >> 2;  // tile rows
+  int ti[TPT], tj[TPT];
+  bool own[TPT];
+  T a[TPT][4][4];
+#pragma unroll
+  for (int t = 0; t < TPT; ++t) {
+    int rem = tid + t * nt, j = 0;
+    while (j < ntr && rem >= ntr - j) {
+      rem -= ntr - j;
+      ++j;
+    }
+    own[t] = j < ntr;
+    tj[t] = j;
+    ti[t] = j + rem;
+    // rows and columns past n: identity, which keeps the last diagonal
+    // tile's factor finite and leaves the others untouched; the diagonal
+    // shift goes into the diagonal tiles here
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * ti[t] + r, jj = 4 * tj[t] + c;
+        a[t][r][c] = !own[t] || jj > i ? T(0)
+                     : i >= n          ? T(i == jj)
+                     : ds != nullptr && i == jj ? Lp[tri(i) + jj] + ds[i]
+                                                : Lp[tri(i) + jj];
+      }
+    if (own[t] && ti[t] == 0) store_tile(D, a[t]);
+  }
+  __syncthreads();
+
+  for (int p = 0; p < ntr; ++p) {
+    // the panel: tiles (i, p) become L_ip = A_ip L_pp^-T, L_pp from the
+    // diagonal tile, which every owner in the panel factors for itself
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+      if (!own[t] || tj[t] != p) continue;
+      T d[4][4], l[4][4], inv[4];
+      load_tile(D, d);
+      chol4(d, l, inv);
+      if (ti[t] == p) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) a[t][r][c] = l[r][c];
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            T v = a[t][r][c];
+#pragma unroll
+            for (int q = 0; q < c; ++q) v -= a[t][r][q] * l[c][q];
+            a[t][r][c] = v * inv[c];
+          }
+      }
+      store_tile(PB + 16 * ti[t], a[t]);
+    }
+    __syncthreads();
+    // the trailing update A_ij -= L_ip L_jp^T, 64 FMAs per tile
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+      if (!own[t] || tj[t] <= p) continue;
+      T li[4][4], lj[4][4];
+      load_tile(PB + 16 * ti[t], li);
+      load_tile(PB + 16 * tj[t], lj);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[t][r][c] -= li[r][q] * lj[c][q];
+      if (ti[t] == p + 1 && tj[t] == p + 1) store_tile(D, a[t]);
+    }
+    __syncthreads();
+  }
+
+  // every read of the input triangle happened before the first barrier
+  // above, so the factor may go back in either layout
+#pragma unroll
+  for (int t = 0; t < TPT; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = 4 * ti[t] + r, j = 4 * tj[t] + c;
+        if (own[t] && i < n && j <= i) Lp[(kRowAligned ? rowoff(i) : tri(i)) + j] = a[t][r][c];
+      }
+  __syncthreads();
+}
+
+// x = (L L^T)^-1 b for the (n, m) row-major b, L packed (tri layout) in
+// shared memory: warp w of nw solves columns w, w + nw, ... forward and back
+// in registers (Kernels C and A at m <= 4).
+template <typename T, int R>
+__device__ __forceinline__ void cho_solve_warps(const T* Lp, const T* __restrict__ b,
+                                                T* __restrict__ x, int n, int m, int warp,
+                                                int nwarps, int lane) {
+  T inv[R];
+  pivots<T, R>(Lp, n, lane, inv);
+  for (int c = warp; c < m; c += nwarps) {
+    T X[R];
+    load_col<T, R>(b, X, n, m, c, lane);
+    forward<T, R>(Lp, inv, X, n, lane);
+    backward<T, R>(Lp, inv, X, n, lane);
+    store_col<T, R>(x, X, n, m, c, lane);
+  }
+}
+
 // cudaFuncGetAttributes of one kernel into out[0] (registers per thread) and
 // out[1] (local memory per thread, bytes: spills and dynamically indexed
 // arrays).
@@ -206,6 +447,13 @@ template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The threads a tiled factor of order n needs at TPT tiles per thread,
+// rounded up to whole warps.
+__host__ __device__ __forceinline__ int tile_threads(int n, int tpt) {
+  const int ntr = (n + 3) / 4;
+  return ((ntr * (ntr + 1) / 2 + tpt - 1) / tpt + 31) / 32 * 32;
 }
 
 }  // namespace tri

@@ -28,12 +28,19 @@ with its stored factor) and needs 1.5e5 to 5.1e5 flops, so for 4096 systems
 in float32 the byte bound is 0.015 to 0.042 ms, while every kernel runs n to
 3n dependent steps per system; the designs differ in what a step costs.
 
-  * chol_solve.cu (A, and E through the same device code with the factor
-    stored and no right-hand side): one thread block per system, the matrix
-    and the right-hand side in shared memory, the column recurrences with
-    block barriers between columns (3n in the factor, 4n more in the two
-    substitutions) and an r^2 index walk per trailing update: bound by that
-    barrier chain.
+  * chol_solve.cu, Kernel A (chol_solve_tiled_kernel, n <= 176): one block
+    per system; C's tiled register factor with the diagonal shift added on
+    the load and no store of L, then the solve by m: a warp per rhs column
+    at m <= CHOL_SOLVE_WARP_MAX_M, a thread per column with 8-row register
+    blocks (D's wide form) above. `chol_solve_route` picks the form by
+    shape; above n = 176, or where the tiled form's shared memory does not
+    fit, it picks the column kernel.
+  * chol_solve.cu, the column kernel (chol_solve_kernel, A above n = 176,
+    and E through the same device code with the factor stored and no
+    right-hand side): one thread block per system, the matrix and the
+    right-hand side in shared memory, the column recurrences with block
+    barriers between columns (3n in the factor, 4n more in the two
+    substitutions): bound by that barrier chain.
   * cho_factor_solve.cu (C): one block per system, each thread keeps fixed
     4x4 tiles of the lower triangle in registers; a blocked right-looking
     factor over 4-column panels, two barriers per panel, 64 FMAs per tile
@@ -72,9 +79,13 @@ from smplsim_tpu_torch.ops import _build
 
 # dynamic shared memory a block may use on Hopper (232,448 bytes)
 _SMEM_MAX = 232448
-# the largest n the register tiles of Kernels C and D hold
+# the largest n the register tiles of Kernels A and C hold, and the rows
+# per lane of Kernel D
 _CFS_MAX_N = 176
 _SL_MAX_N = 256
+# Kernel A solves with a warp per rhs column up to this m, with a thread per
+# column above it
+CHOL_SOLVE_WARP_MAX_M = 4
 
 
 def cholesky_plain(H: torch.Tensor) -> torch.Tensor:
@@ -169,6 +180,53 @@ def _check(name, A, b=None, diag=None):
     return True
 
 
+def _tri(i: int) -> int:
+    return i * (i + 1) // 2
+
+
+def _rowoff(i: int) -> int:
+    """Start of row i in the row-aligned packed triangle (tri_warp.cuh)."""
+    q = i >> 2
+    return 8 * q * (q + 1) + (i - 4 * q) * 4 * (q + 1)
+
+
+def _tile_threads(n: int, thread_cols: bool = False) -> int:
+    """Threads of Kernel A's tiled factor of order n (tri::tile_threads at
+    the tiles per thread chol_solve.cu's launch_tiled picks)."""
+    ntr = (n + 3) // 4
+    tiles = ntr * (ntr + 1) // 2
+    tpt = 2 if thread_cols and n <= 64 else 1 if n <= 64 else 2 if n <= 96 else 4
+    return (-(-tiles // tpt) + 31) // 32 * 32
+
+
+def chol_solve_tiled_smem(n: int, m: int, itemsize: int, form: str) -> int | None:
+    """Bytes of shared memory Kernel A's tiled form takes for one (n, m)
+    system with the given solve form ("warp" or "thread"), or None where the
+    block would exceed 256 threads (chol_solve.cu's run_tiled)."""
+    thread = form == "thread"
+    solve = min(256, max(32, -(-m // 32) * 32 if thread else 32 * min(m, 8)))
+    mw = -(-m // solve) * solve if thread else 0
+    if max(_tile_threads(n, thread), solve) > 256:
+        return None
+    n8 = -(-n // 8) * 8
+    lp = max(_rowoff(n8), _tri(n)) if thread else _tri(n)
+    return itemsize * (16 + 16 * ((n + 3) // 4) + lp + n8 * mw)
+
+
+def chol_solve_route(n: int, m: int, itemsize: int) -> str:
+    """Which kernel `chol_solve` launches for (B,n,n) systems with m
+    right-hand sides of `itemsize` bytes: "warp" or "thread" (Kernel A's
+    tiled factor, solved with a warp or a thread per rhs column), or
+    "column" (the column kernel) where the tiles do not hold n or the tiled
+    form's shared memory does not fit. A dispatch on shape only."""
+    if 1 <= m and n <= _CFS_MAX_N:
+        form = "warp" if m <= CHOL_SOLVE_WARP_MAX_M else "thread"
+        smem = chol_solve_tiled_smem(n, m, itemsize, form)
+        if smem is not None and smem <= _SMEM_MAX:
+            return form
+    return "column"
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -179,14 +237,22 @@ def chol_solve(A: torch.Tensor, b: torch.Tensor,
     if not _check("chol_solve", A, b, diag):
         return chol_solve_plain(A, b, diag)
     Bn, n, m = b.shape
-    if A.element_size() * n * (n + m) > _SMEM_MAX:
+    route = chol_solve_route(n, m, A.element_size())
+    if route == "column" and A.element_size() * n * (n + m) > _SMEM_MAX:
         raise ValueError(f"chol_solve: n={n}, m={m} exceed a block's shared memory")
     x = torch.empty_like(b)
-    name = "chol_solve_f32" if A.dtype == torch.float32 else "chol_solve_f64"
-    fn = _build.kernel("chol_solve.cu", name)
+    suffix = "f32" if A.dtype == torch.float32 else "f64"
+    d_ptr = None if diag is None else diag.data_ptr()
     with torch.cuda.device(A.device):
-        status = fn(A.data_ptr(), b.data_ptr(), None if diag is None else diag.data_ptr(),
-                    x.data_ptr(), Bn, n, m, _stream(A))
+        if route == "column":
+            name = f"chol_solve_{suffix}"
+            status = _build.kernel("chol_solve.cu", name)(
+                A.data_ptr(), b.data_ptr(), d_ptr, x.data_ptr(), Bn, n, m, _stream(A))
+        else:
+            name = f"chol_solve_tiled_{suffix}"
+            status = _build.kernel("chol_solve.cu", name)(
+                A.data_ptr(), b.data_ptr(), d_ptr, x.data_ptr(), Bn, n, m,
+                int(route == "thread"), _stream(A))
     _build.check(status, name)
     chol_solve.launches += 1
     return x
@@ -276,23 +342,28 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_attributes() -> list[dict]:
-    """cudaFuncGetAttributes of every instantiation of Kernels C and D:
-    registers and local memory (spills) per thread, by type and tile (C:
-    tiles per thread TPT and solve rows per lane R; D: its form and rows per
-    lane or per register block R)."""
+    """cudaFuncGetAttributes of every instantiation of Kernels A (tiled), B
+    (warp form), C and D: registers and local memory (spills) per thread, by
+    type and tile (A: tiles per thread TPT and solve rows per lane R, R = 0
+    for a thread per column; B: rows per lane R and the systems an SM holds
+    at once; C: TPT and R; D: its form and rows per lane or per register
+    block R)."""
     out = []
-    for src, kind, tile in (("cho_factor_solve.cu", "cho_factor_solve", "TPT"),
-                            ("solve_lower.cu", "solve_lower", "warp_per_column")):
-        fn = _build.kernel(src, f"{kind}_attrs")
+    for src, kind, entry, keys in (
+            ("chol_solve.cu", "chol_solve", "chol_solve_tiled_attrs", ("TPT", "R")),
+            ("newton_qp.cu", "newton_qp", "newton_qp_warp_attrs", ("R", "resident_per_sm")),
+            ("cho_factor_solve.cu", "cho_factor_solve", "cho_factor_solve_attrs", ("TPT", "R")),
+            ("solve_lower.cu", "solve_lower", "solve_lower_attrs", ("warp_per_column", "R"))):
+        fn = _build.kernel(src, entry)
         i = 0
         while True:
             vals = (ctypes.c_int * 5)()
             status = fn(i, vals)
             if status == -1:
                 break
-            _build.check(status, f"{kind}_attrs")
+            _build.check(status, entry)
             regs, local, size, t, r = vals
             out.append(dict(kernel=kind, dtype="float32" if size == 4 else "float64",
-                            **{tile: t}, R=r, num_regs=regs, local_bytes=local))
+                            **dict(zip(keys, (t, r))), num_regs=regs, local_bytes=local))
             i += 1
     return out

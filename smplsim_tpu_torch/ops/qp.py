@@ -12,18 +12,22 @@ its lanes converge, hence its lane sort, which is not ported), and the line
 search takes the FIRST minimum over [1, .5, .25, .0625, .015625, stay] (the
 TPU kernel keeps "stay" on ties).
 
-On a CUDA tensor it launches the hand-written kernel in csrc/newton_qp.cu:
-one thread block per system, one thread per row, A and the masked factor in
-shared memory for every iteration. What bounds it on the H100: a system
-moves (K^2 + 4K) values, 4.6 KB at K=32 in float32, and an iteration needs
-K^3/3 + ~26 K^2 flops, so for 4096 systems at ~2 iterations each the byte
-bound is ~0.006 ms; the work of one system is serial (K dependent pivots,
-six barrier-separated candidate evaluations per line search), so the
-kernel is bound by its chain of block barriers and warp reductions. The
-design keeps every iteration in shared memory and registers (device memory
-is touched once on entry and once on exit) and lets converged systems leave
-at once; PERF.md has its measured time against the bound. On a CPU tensor
-it runs `newton_qp_plain`.
+On a CUDA tensor it launches a hand-written kernel of csrc/newton_qp.cu,
+chosen by `newton_qp_route` on K alone: up to K = 64 (COMPACT_ROWS' default;
+32 on the main path) the warp form, a warp per system with several systems
+per block, A in shared memory read in 16-byte vectors, the masked factor
+warp-synchronous with each lane's rows in registers, butterfly reductions
+and no block barrier after the load; above K = 64 the block form, one thread
+block per system and one thread per row. What bounds it on the H100: a
+system moves (K^2 + 4K) values, 4.6 KB at K=32 in float32, and an iteration
+needs K^3/3 + ~26 K^2 flops, so for 4096 systems at ~2 iterations each the
+byte bound is ~0.006 ms; the work of one system is serial (K dependent
+pivots and 2K substitution steps an iteration), so the kernel's time is the
+latency of one iteration times the iterations of the slowest system in each
+wave of resident systems. Both forms keep every iteration in shared memory
+and registers (device memory is touched once on entry and once on exit) and
+let converged systems leave at once; PERF.md has the measured times against
+the bound. On a CPU tensor it runs `newton_qp_plain`.
 
 The same call, on (B,K,K) batch-first systems, is also the port of the
 batch-major entries the per-env solver reaches under vmap
@@ -62,6 +66,8 @@ from smplsim_tpu_torch.ops.linalg import (
     _SMEM_MAX, check_no_derivative, cholesky_plain, solve_lower_plain, solve_lower_t_plain)
 
 NEWTON_ITERS = int(os.environ.get("SMPLSIM_QP_ITERS", 40))
+# the largest K the warp-per-system form takes (two rows per lane)
+QP_WARP_MAX_K = 64
 _LS_STEPS = (1.0, 0.5, 0.25, 0.0625, 0.015625)
 _TOLS = {
     torch.float32: float(os.environ.get("SMPLSIM_QP_TOL", 1e-6)),
@@ -129,6 +135,13 @@ def newton_qp_plain(A, b, active, f0, iters: int, tol: float):
     return newton_qp_plain_counted(A, b, active, f0, iters, tol)[0]
 
 
+def newton_qp_route(K: int) -> str:
+    """Which kernel `newton_qp` launches for K x K systems: "warp" (a warp
+    per system) up to QP_WARP_MAX_K, "block" (a block per system) above. A
+    dispatch on shape only."""
+    return "warp" if K <= QP_WARP_MAX_K else "block"
+
+
 def _check(A, b, active, f0):
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"newton_qp: A {tuple(A.shape)} must be (B,K,K)")
@@ -157,10 +170,13 @@ def newton_qp(A: torch.Tensor, b: torch.Tensor, active: torch.Tensor,
     if not all(t.is_contiguous() for t in (A, b, active, f0)):
         raise ValueError("newton_qp: the kernel takes contiguous tensors")
     Bn, K = b.shape
-    if K > 1024 or A.element_size() * (2 * K * (K + 1) + 2 * K + 33) > _SMEM_MAX:
+    route = newton_qp_route(K)
+    if route == "block" and (
+            K > 1024 or A.element_size() * (2 * K * (K + 1) + 2 * K + 33) > _SMEM_MAX):
         raise ValueError(f"newton_qp: K={K} exceeds a block's threads or shared memory")
     f = torch.empty_like(b)
-    name = "newton_qp_f32" if A.dtype == torch.float32 else "newton_qp_f64"
+    name = ("newton_qp_warp_" if route == "warp" else "newton_qp_") + (
+        "f32" if A.dtype == torch.float32 else "f64")
     fn = _build.kernel("newton_qp.cu", name)
     with torch.cuda.device(A.device):
         status = fn(A.data_ptr(), b.data_ptr(), active.data_ptr(), f0.data_ptr(),

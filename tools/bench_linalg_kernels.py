@@ -4,8 +4,12 @@ kernels (ops/linalg.py) against their PyTorch library calls, on one GPU.
     python3 tools/bench_linalg_kernels.py
 
 Inputs are random SPD float32 systems at the port's shapes (n=75; B=4096,
-and B=880 for D at m=75 and E at n=32), made from seed 0 on the card. For
-each kernel and its library call it prints:
+and B=880 for D at m=75 and E at n=32), made from seed 0 on the card, and
+for Kernel B 4096 random Delassus-like K=32 systems (A = J J^T / 75 +
+1e-3 I, 80% of the rows active), solved at tol 0 so that every system runs
+all 16 iterations: B's graph_ms / 16 is the time of one iteration with the
+card full, its graph_ms_b132 / 16 the latency of one iteration of one
+system. For each kernel and its library call (B has none) it prints:
 
   * event_ms: CUDA events around 20 back-to-back calls, as chip_smoke.py
     times them (includes the host's time per call where that is longer);
@@ -81,7 +85,7 @@ def main() -> None:
         print("FAIL: no CUDA card", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from smplsim_tpu_torch.ops import _build, linalg
+    from smplsim_tpu_torch.ops import _build, linalg, qp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -100,6 +104,12 @@ def main() -> None:
     A = spd(4096, 75)
     L = linalg.cholesky_plain(A.double()).float().contiguous()
     A880, H880 = spd(880, 75), spd(880, 32)
+    b33 = rhs(4096, 75, 33)
+    J = torch.randn(4096, 32, 75, generator=g, device=dev, dtype=torch.float64)
+    Aq = (J @ J.mT / 75 + 1e-3 * torch.eye(32, device=dev, dtype=torch.float64)).float()
+    bq = torch.randn(4096, 32, generator=g, device=dev)
+    aq = (torch.rand(4096, 32, generator=g, device=dev) < 0.8).float()
+    f0q = torch.zeros(4096, 32, device=dev)
     L880 = linalg.cholesky_plain(A880.double()).float().contiguous()
     b1, b32, b75 = rhs(4096, 75, 1), rhs(4096, 75, 32), rhs(880, 75, 75)
     d1 = torch.rand(4096, 75, generator=g, device=dev)
@@ -128,6 +138,9 @@ def main() -> None:
         "A chol_solve m=1+diag": (linalg.chol_solve,
                                   lambda A_, b_, d_: lib_cfs(A_ + torch.diag_embed(d_), b_),
                                   (A, b1, d1)),
+        "A chol_solve m=33": (linalg.chol_solve, lib_cfs, (A, b33)),
+        "B newton_qp K=32 tol 0": (lambda *a: qp.newton_qp(*a, 16, 0.0), None,
+                                   (Aq, bq, aq, f0q)),
         "E cholesky K=32 B=880": (linalg.cholesky, lambda H_: torch.linalg.cholesky_ex(H_)[0],
                                   (H880,)),
     }
@@ -136,6 +149,9 @@ def main() -> None:
         small = tuple(a[:132].contiguous() for a in args)
         row = {}
         for who, fn in (("kernel", kern), ("library", lib)):
+            if fn is None:
+                row[who] = None
+                continue
             graph = who == "kernel" or name in capturable
             row[who] = dict(event_ms=event_ms(lambda: fn(*args)),
                             graph_ms=graph_ms(lambda: fn(*args)) if graph else None,
@@ -143,8 +159,9 @@ def main() -> None:
                             graph_ms_b132=graph_ms(lambda: fn(*small)) if graph else None)
         out[name] = row
         print(f"{name}: " + "; ".join(
-            f"{who} " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none"
-                                  for k, v in r.items()) for who, r in row.items()), flush=True)
+            f"{who} " + (", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none"
+                                   for k, v in r.items()) if r is not None else "none")
+            for who, r in row.items()), flush=True)
     print(card)
     print(json.dumps({"card": card, "cases": out}))
 

@@ -9,12 +9,14 @@ control mode (uniform random actions in [-1, 1]), warms up three control
 steps, times `--steps` step_autoreset calls, then records as many again
 with torch.profiler. Prints the wall time per control step, the device's
 busy time in it (sum of kernel and copy times) and so its idle share, the
-device time of the hand-written kernels, and the top device ops.
-Needs a CUDA card.
+device time and launches of each hand-written kernel by its device
+function's name, and the top device ops; the last line is one JSON object
+with these numbers and the card's name and power limit. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -26,6 +28,19 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
+# the hand-written kernels by device function. chol_solve_kernel is the
+# column kernel's template <T, kStoreL>: A's column form without the stored
+# factor, Kernel E with it.
+HAND_WRITTEN = {
+    "A chol_solve_tiled_kernel": lambda k: "chol_solve_tiled_kernel" in k,
+    "A chol_solve_kernel (column form)": lambda k: "chol_solve_kernel<" in k and "false>" in k,
+    "B newton_qp_warp_kernel": lambda k: "newton_qp_warp_kernel" in k,
+    "B newton_qp_kernel (block form)": lambda k: "newton_qp_kernel<" in k,
+    "C cho_factor_solve_kernel": lambda k: "cho_factor_solve_kernel" in k,
+    "D solve_lower_warp_kernel": lambda k: "solve_lower_warp_kernel" in k,
+    "D solve_lower_cols_kernel": lambda k: "solve_lower_cols_kernel" in k,
+    "E chol_solve_kernel (factor stored)": lambda k: "chol_solve_kernel<" in k and "true>" in k,
+}
 
 
 def main() -> None:
@@ -74,14 +89,25 @@ def main() -> None:
     print(f"wall per control step {wall_plain * 1e3:.1f} ms ({wall * 1e3:.1f} ms with the "
           f"profiler on); device busy {busy:.1f} ms: idle share "
           f"{max(0.0, 1 - busy / (wall_plain * 1e3)):.3f} of the unprofiled step")
-    kern = {k: sum(dev_us(e) for e in events if k in e.key) / 1e3 / args.steps
-            for k in ("chol_solve_kernel", "solve_lower_kernel", "newton_qp_kernel")}
-    print("hand-written kernels, device ms per control step: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in kern.items()))
+    kern = {}
+    for name, match in HAND_WRITTEN.items():
+        hit = [e for e in events if match(e.key)]
+        kern[name] = dict(device_ms=sum(dev_us(e) for e in hit) / 1e3 / args.steps,
+                          launches=sum(e.count for e in hit) / args.steps)
+    print("hand-written kernels per control step:")
+    for name, k in kern.items():
+        print(f"  {name}: device {k['device_ms']:.3f} ms, {k['launches']:.1f} launches")
+    hand = sum(k["device_ms"] for k in kern.values())
+    print(f"  all hand-written kernels: {hand:.3f} ms of the {busy:.1f} ms busy")
     top = sorted(events, key=dev_us, reverse=True)[:25]
     print(f"{'device ms/step':>14} {'calls/step':>10}  device op")
     for e in top:
         print(f"{dev_us(e) / 1e3 / args.steps:14.3f} {e.count / args.steps:10.1f}  {e.key[:90]}")
+    print(card)
+    print(json.dumps({"card": card, "control_mode": args.control_mode, "batch": args.batch,
+                      "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
+                      "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / (wall_plain * 1e3)),
+                      "hand_written_ms": hand, "kernels": kern}))
 
 
 if __name__ == "__main__":
