@@ -6,8 +6,8 @@ Phases (any failure exits non-zero):
   1. environment: torch, CUDA, the card's name and power limit; TF32 off;
      build the CUDA kernels from smplsim_tpu_torch/ops/csrc with nvcc; the
      registers and local memory (cudaFuncGetAttributes) of every
-     instantiation of Kernels A (tiled), B (warp form), C and D, failing if
-     a float32 one spills; B's resident systems per SM, failing unless 4096
+     instantiation of Kernels A (tiled), B (warp form), C, D and E (warp and
+     tiled forms), failing if a float32 one spills; B's resident systems per SM, failing unless 4096
      systems at K=32 fit the card in one wave;
   2. kernels against their plain PyTorch versions on the card, on inputs
      taken from a real substep of the main path (B=4096 HumanoidSpeed envs
@@ -50,7 +50,13 @@ Phases (any failure exits non-zero):
      substep at its 4 trajectory points, K=32, each system replicated 220
      times as the Jacobian batch holds it): float64 elementwise and float32
      by |L L^T - H| / |H|, exact zeros above the diagonal in both; times of
-     kernel, plain version and torch.linalg.cholesky_ex; Kernel D at
+     kernel (the route linalg.cholesky_route picks: a warp per system),
+     plain version and torch.linalg.cholesky_ex; the control: E's column
+     kernel (chol_solve.cu's cholesky_f32) through its raw entry point on
+     the same inputs, both also timed by CUDA-graph replay (device time
+     alone: at this size the wrapper's host time per call is as long as the
+     kernel), failing unless the wrapper's kernel is the faster there;
+     Kernel D at
      m = n = 75 on the same batch (the factors of M at the points), the
      shape of the cholesky rule's L^-1 dA solves, the same way;
   9. the differentiable path: one Jacobian evaluation (control.jacobians:
@@ -86,7 +92,14 @@ Phases (any failure exits non-zero):
      a NaN system changes no bit of the others; float64 elementwise within
      1e-9 where both converge, float32 objective within 1e-4 and the kernel
      missing the tolerance on at most 1% of the systems where the plain
-     version meets it.
+     version meets it;
+ 13. edge cases of Kernel E against its plain version on random SPD
+     systems: B in (1, 3, 33), n in (8, 32, 33, 64, 75, 180), all three
+     routes of linalg.cholesky_route (180 is above the tiles: the column
+     kernel, float32 only; float64 must raise); float64 elementwise within
+     1e-9, float32 by |L L^T - A| / |A| within 1e-5, exact zeros above the
+     diagonal; 7.0 and NaN above the diagonal change no bit; a NaN system
+     in a batch of 33 changes no bit of the other 32.
 
 Phases 3, 6 and 9 each set every launch count to 0 just before and read
 them just after. The third-to-last line is the `kernels` JSON object, the
@@ -160,6 +173,30 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of fn() alone: reps calls captured in one CUDA graph,
+    replayed 5 times, the mean per call (no host time per call in it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (5 * reps)
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -220,6 +257,13 @@ def chol_solve_raw(build, A, b, d, x, form=None) -> None:
     name = f"chol_solve_{sfx}" if form is None else f"chol_solve_tiled_{sfx}"
     extra = () if form is None else (form,)
     build.check(build.kernel("chol_solve.cu", name)(*args, *extra, stream_ptr()), name)
+
+
+def cholesky_column_raw(build, A, L) -> None:
+    """One uncounted launch of Kernel E's column form (chol_solve.cu) into L."""
+    name = "cholesky_f32" if A.dtype == torch.float32 else "cholesky_f64"
+    build.check(build.kernel("chol_solve.cu", name)(A.data_ptr(), L.data_ptr(), *A.shape[:2],
+                                                    stream_ptr()), name)
 
 
 def newton_qp_raw(build, A, b, a, f0, f, it, tol) -> None:
@@ -463,6 +507,65 @@ def edge_cases_ab(linalg, qp, dev) -> None:
                           f"worst over the edge cases: {val:.3e} <= {tol:g}")
 
 
+def edge_cases_e(linalg, dev) -> None:
+    """Phase 13: Kernel E against its plain version at every route of its
+    shape dispatch, with garbage above the diagonal and a NaN system in the
+    batch."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    worst, routes = {}, set()
+    garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
+    for dt in (torch.float64, torch.float32):
+        name = "float64" if dt == torch.float64 else "float32"
+        for n in (8, 32, 33, 64, 75, 180):
+            route = linalg.cholesky_route(n, torch.finfo(dt).bits // 8)
+            if dt == torch.float64 and n == 180:
+                A = torch.eye(n, device=dev, dtype=dt).expand(1, n, n).contiguous()
+                try:
+                    linalg.cholesky(A)
+                except ValueError:
+                    print("  ok: cholesky float64 at n=180 raises ValueError (a block's shared "
+                          "memory)", flush=True)
+                else:
+                    fail("cholesky float64 at n=180 did not raise")
+                continue
+            routes.add((n, route))
+            for Bn in (1, 3, 33):
+                G = torch.randn(Bn, n, n, generator=g, device=dev, dtype=torch.float64)
+                A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
+                shape = f"{name} B={Bn}, n={n} ({route} form)"
+                Lk = linalg.cholesky(A)
+                Lp = linalg.cholesky_plain(A)
+                if not bool((torch.triu(Lk, 1) == 0).all()):
+                    fail(f"cholesky {shape}: L not zero above the diagonal")
+                if dt == torch.float64:
+                    key, val = "elementwise", rel_diff(Lk, Lp)
+                else:
+                    L64, A64 = Lk.double(), A.double()
+                    key = "factor"
+                    val = (inf_norm(L64 @ L64.mT - A64) / inf_norm(A64)).amax().item()
+                worst[(name, key)] = max(worst.get((name, key), 0.0), val)
+                for fill in (7.0, float("nan")):
+                    if not torch.equal(linalg.cholesky(garbage(A, fill)), Lk):
+                        fail(f"cholesky {shape}: {fill} above the diagonal changed the result")
+                if Bn == 33:
+                    keep = torch.arange(Bn, device=dev) != Bn // 2
+                    An = A.clone()
+                    An[Bn // 2] = float("nan")
+                    check(torch.equal(linalg.cholesky(An)[keep], Lk[keep]),
+                          f"cholesky {shape}: a NaN system in a batch of {Bn} leaves the "
+                          "others' factors bit for bit")
+    print(f"  cholesky routes (n, route): {sorted(routes)}", flush=True)
+    check({r for _, r in routes} == {"warp", "tiled", "column"},
+          "the edge cases reach all three of cholesky's routes")
+    for (name, key), val in sorted(worst.items()):
+        tol = 1e-9 if name == "float64" else 1e-5
+        label = {"elementwise": "vs plain, per system relative to max|plain|",
+                 "factor": "|L L^T - A| / |A|"}[key]
+        check(val <= tol, f"cholesky {name} {label}, worst over B in (1, 3, 33), n in (8, 32, "
+                          f"33, 64, 75, 180): {val:.3e} <= {tol:g}")
+    print("  ok: 7.0 and NaN above the diagonal change no bit of E's factor", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -491,7 +594,7 @@ def main() -> None:
     for a in attrs:
         print(f"  {a}")
     spilled = [a for a in attrs if a["dtype"] == "float32" and a["local_bytes"] > 0]
-    check(not spilled, f"no float32 instantiation of Kernels A, B, C and D uses local memory "
+    check(not spilled, f"no float32 instantiation of Kernels A, B, C, D and E uses local memory "
                        f"({len(attrs)} instantiations; float64 with local memory: "
                        f"{sum(a['local_bytes'] > 0 for a in attrs)})")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -914,14 +1017,33 @@ def main() -> None:
         ms = cuda_ms(lambda: linalg.cholesky(Hd), 20)
         plain = cuda_ms(lambda: linalg.cholesky_plain(Hd), 3)
         lib = cuda_ms(lambda: torch.linalg.cholesky_ex(Hd)[0], 10)
+        # the control: the column kernel through its raw entry point
+        Lo = torch.empty_like(Hd)
+        cholesky_column_raw(_build, Hd, Lo)
+        Lo64 = Lo.double()
+        fac_o = (inf_norm(Lo64 @ Lo64.mT - Hd.double()) / inf_norm(Hd.double())).amax().item()
+        check(fac_o <= 1e-5, f"cholesky float32, column form: |L L^T - H| / |H| {fac_o:.3e} "
+                             "<= 1e-5")
+        prev = cuda_ms(lambda: cholesky_column_raw(_build, Hd, Lo), 20)
+        # at this size the wrapper's host time per call is as long as the
+        # kernel: the two forms are compared by device time alone
+        dev_ms = graph_ms(lambda: linalg.cholesky(Hd))
+        prev_dev = graph_ms(lambda: cholesky_column_raw(_build, Hd, Lo))
         Bn, n = Hd.shape[:2]
+        form = linalg.cholesky_route(n, 4)
+        check(dev_ms < prev_dev, f"cholesky: the {form} form ({dev_ms:.4f} ms of device time) "
+                                 f"is faster than the column kernel ({prev_dev:.4f} ms) in "
+                                 "this call")
         # lower H read, full L written
         bms, by = bound_ms(4 * Bn * (n * (n + 1) / 2 + n * n), Bn * n ** 3 / 3, dt)
         report["E"] = dict(max_abs_err=(Lk - Lp).abs().amax().item(),
                            max_rel_err=rel_diff(Lk, Lp), max_factor_residual=fac, ms=ms,
-                           plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
-        print(f"  cholesky[K={n}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+                           plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                           form=form, previous_ms=prev, device_ms=dev_ms,
+                           previous_device_ms=prev_dev)
+        print(f"  cholesky[K={n}] f32: kernel {ms:.4f} ms ({form} form; device time alone "
+              f"{dev_ms:.4f}), column kernel {prev:.4f} ms (device {prev_dev:.4f}), plain "
+              f"{plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
     # Kernel D at m = n = 75: the cholesky rule's L^-1 dA solves on the same
     # batch (the factors of M at the points, a symmetric right-hand side)
     L9 = sm8.chol.repeat_interleave(reps, 0).contiguous()
@@ -1052,6 +1174,10 @@ def main() -> None:
     print("phase 12: kernels A and B on edge cases", flush=True)
     edge_cases_ab(linalg, qp, dev)
 
+    # ------------------------------------------------------ 13. E edge cases
+    print("phase 13: kernel E on edge cases", flush=True)
+    edge_cases_e(linalg, dev)
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
@@ -1087,7 +1213,8 @@ def main() -> None:
                 for k in ("max_abs_err", "max_rel_err", "max_residual")},
              bound_by=report[d_names[0]]["bound_by"],
              shapes={k: report[k] for k in d_names + ["m=75"]}),
-        dict(name="cholesky", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
+        dict(name="cholesky", route="cuda",
+             source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:410", **paths(n_e, t_e, j_e),
              **report["E"]),
     ]

@@ -39,6 +39,11 @@ _SIGNATURES = {
     "cho_factor_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cholesky_f32": (_P, _P, _I, _I, _P),
     "cholesky_f64": (_P, _P, _I, _I, _P),
+    "cholesky_warp_f32": (_P, _P, _I, _I, _P),
+    "cholesky_warp_f64": (_P, _P, _I, _I, _P),
+    "cholesky_tiled_f32": (_P, _P, _I, _I, _P),
+    "cholesky_tiled_f64": (_P, _P, _I, _I, _P),
+    "cholesky_attrs": (_I, _P),
     "solve_lower_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "solve_lower_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "solve_lower_attrs": (_I, _P),

@@ -1,6 +1,7 @@
 // Batched fused SPD factor + solve for Hopper (sm_90a):
 //     x = (A + diag(d))^-1 b        A (B,n,n), b (B,n,m), d (B,n) or null,
-// and the factor alone (cholesky: L = chol(A), no right-hand side).
+// and the factor alone (Kernel E's column form: L = chol(A), no right-hand
+// side).
 //
 // chol_solve_tiled_* (Kernel A) replaces the TPU kernel
 // smplsim_tpu/ops/linalg_kernels.py::chol_solve_lanes (body
@@ -38,16 +39,16 @@
 // the column kernel below.
 //
 // chol_solve_kernel, the column kernel, serves chol_solve_* (every n whose
-// system fits a block's shared memory) and cholesky_* (Kernel E, replacing
-// linalg_kernels.py::cholesky_batched, body _chol_kernel: the factor alone,
-// which backs the contact QP's implicit-function derivative). One block per
+// system fits a block's shared memory) and cholesky_* (Kernel E above
+// n = 176, the factor alone; cho_factor_solve.cu holds E's warp and tiled
+// forms below that, which ops/linalg.py picks by shape). One block per
 // system: the lower triangle of H = A + diag(d) and the right-hand side in
 // shared memory, a right-looking column Cholesky (threads over the trailing
 // triangle, 3n block barriers), then forward and back substitution
 // (threads over rows x rhs columns, 2n barriers each). cholesky writes the
 // factor out once as a full (n,n) matrix with exact zeros above the
-// diagonal. It is bound by that barrier chain (cholesky at K=32: 6.2 KB,
-// 1.1e4 flops and the factor's 3K barriers alone). The TPU's panel
+// diagonal. It is bound by that barrier chain (3n barriers in the
+// factor alone). The TPU's panel
 // blocking, rhs chunking and 128-lane padding are VMEM and lane devices and
 // are not carried over.
 #include <cuda_runtime.h>
@@ -311,7 +312,8 @@ extern "C" int chol_solve_f64(const void* A, const void* b, const void* diag, vo
 }
 
 // L (B,n,n), the lower Cholesky factor of each SPD A (B,n,n) with exact zeros
-// above the diagonal (only the lower triangle of A is read).
+// above the diagonal (only the lower triangle of A is read): Kernel E's
+// column form, for any n whose system fits a block's shared memory.
 extern "C" int cholesky_f32(const void* A, void* L, int B, int n, void* stream) {
   return launch<float, true>(A, nullptr, nullptr, nullptr, L, B, n, 0, stream);
 }

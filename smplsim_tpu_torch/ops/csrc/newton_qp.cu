@@ -37,7 +37,8 @@
 // is sized so that 32 warps of 64 registers fit an SM). A matvec is a
 // dot product of the lane's row against a vector broadcast through shared
 // memory. Reductions are butterfly shuffles, so every lane holds the result
-// and takes the same branch. The masked factor runs warp-synchronously with
+// and takes the same branch. The masked factor (tri::warp_factor, which
+// Kernel E's warp form shares) runs warp-synchronously with
 // each lane's rows in registers (in float32 at K <= 32 only columns 16-31:
 // the first 16 are factored in place in shared memory, which keeps the
 // instantiation at 64 registers without a spill): per pivot one shuffle, one column published
@@ -253,13 +254,7 @@ int launch(const void* A, const void* b, const void* act, const void* f0, void* 
 // ------------------------------------------------ the warp-per-system form
 namespace wq {
 
-// 16 bytes from a 16-byte aligned shared address
-__device__ __forceinline__ void ld16(const float* p, float (&v)[4]) { tri::load4(p, v); }
-__device__ __forceinline__ void ld16(const double* p, double (&v)[2]) {
-  const double2 q = *reinterpret_cast<const double2*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-}
+using tri::ld16;
 
 template <typename T>
 __device__ __forceinline__ T wsum(T v) {
@@ -455,52 +450,9 @@ newton_qp_warp_kernel(const T* __restrict__ A, const T* __restrict__ b,
         }
       }
     }
-    // right-looking Cholesky, warp-synchronous: step k takes the pivot from
-    // lane k mod 32 by one shuffle, every lane scales its rows' entry k,
-    // publishes it in a column buffer (two, alternating, so one __syncwarp
-    // a step suffices) and in the packed factor, then updates its rows'
-    // trailing entries from 16-byte broadcast reads of the column
-#pragma unroll
-    for (int k = 0; k < KP; ++k) {
-      if (k >= K) break;
-      const int sk = k / 32;
-      const int own = lane + 32 * sk;
-      const T hk_own = k < JS ? (own >= k ? Lp[tri::tri(own) + k] : T(0)) : h[sk][k];
-      // sqrt and 1 / sqrt rounded as the plain version's sqrt and division
-      // are: a cheaper reciprocal square root moved ill-conditioned
-      // float32 systems off the plain version's iterates
-      const T piv = tri::root(__shfl_sync(kFull, hk_own, k % 32));
-      const T ip = tri::div(T(1), piv);
-      T* cb = col + (k & 1) * KP;
-      T l[R];
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        if (s < sk) continue;  // rows < 32 (s + 1) <= k: finished
-        const int row = lane + 32 * s;
-        const T hk = k < JS ? (row >= k ? Lp[tri::tri(row) + k] : T(0)) : h[s][k];
-        l[s] = hk * ip;
-        cb[row] = l[s];
-        if (row >= k) Lp[tri::tri(row) + k] = row == k ? piv : l[s];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = (k + 1) / V; c < NC; ++c) {
-        T x[V];
-        ld16(cb + c * V, x);
-#pragma unroll
-        for (int s = 0; s < R; ++s) {
-          if (s < sk || c * V >= 32 * (s + 1)) continue;
-          const int row = lane + 32 * s;
-#pragma unroll
-          for (int q = 0; q < V; ++q) {
-            const int j = c * V + q;
-            if (j <= k) continue;
-            if (j >= JS) h[s][j] -= l[s] * x[q];
-            else if (j <= row) Lp[tri::tri(row) + j] -= l[s] * x[q];
-          }
-        }
-      }
-    }
+    // the warp-synchronous masked factor (tri::warp_factor, shared with
+    // Kernel E's warp form)
+    tri::warp_factor<T, R, JS>(h, Lp, col, K, lane);
     // Newton direction: y = H^-1 (b o a) by the warp substitutions
     T X[R];
 #pragma unroll

@@ -1,8 +1,9 @@
-// Device code shared by Kernels A (chol_solve.cu), B (newton_qp.cu), C
+// Device code shared by Kernels A (chol_solve.cu), B (newton_qp.cu), C and E
 // (cho_factor_solve.cu) and D (solve_lower.cu): the packed lower triangle in
 // shared memory, its load, the warp-synchronous triangular substitutions
 // (C, A at m <= 4, D at m <= 4, B), the thread-per-column substitutions (D
-// and A at m > 4) and the tiled register factor (C and A).
+// and A at m > 4), the tiled register factor (C, A, and E at n > 64) and the
+// warp factor (B, and E at n <= 64).
 //
 // Layout: the lower triangle of an (n,n) matrix packed row by row, (i,j) at
 // tri(i) + j. Triangular numbers taken mod 32 run through all 32 banks for
@@ -81,6 +82,14 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   const double2 q0 = reinterpret_cast<const double2*>(p)[0];
   const double2 q1 = reinterpret_cast<const double2*>(p)[1];
   v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+}
+
+// 16 bytes from a 16-byte aligned shared address: four floats or two doubles
+__device__ __forceinline__ void ld16(const float* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void ld16(const double* p, double (&v)[2]) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
 }
 
 // a / b. Double: IEEE division. Float: the special-function unit's
@@ -425,6 +434,67 @@ __device__ __forceinline__ void cho_solve_warps(const T* Lp, const T* __restrict
     forward<T, R>(Lp, inv, X, n, lane);
     backward<T, R>(Lp, inv, X, n, lane);
     store_col<T, R>(x, X, n, m, c, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The warp-synchronous right-looking Cholesky of Kernels B (the masked Newton
+// system, newton_qp.cu) and E (its warp form, cho_factor_solve.cu): one warp
+// factors one SPD system of order n <= KP = 32 R. Lane l owns rows l + 32 s
+// (s < R). On entry a row's columns j >= JS are in h[s][j], and its columns
+// j < JS (j <= row) in the packed factor Lp (tri layout), where they are
+// factored in place; on exit Lp holds L, packed, and h is spent. col is two
+// column buffers of KP entries, 16-byte aligned. Step k takes the pivot
+// from lane k mod 32 by one shuffle, every lane scales its rows' entry k and
+// publishes it in a column buffer (two, alternating, so one __syncwarp a
+// step suffices) and in Lp, then updates its rows' trailing entries from
+// 16-byte broadcast reads of the column. sqrt and 1 / sqrt are rounded as
+// the plain version's sqrt and division are (root, div): a cheaper
+// reciprocal square root moved ill-conditioned float32 systems off the
+// plain version. The loops are unrolled, so every register index is
+// static, and counted, so a NaN system cannot hang them. A row's entries
+// past its diagonal and rows past n take garbage that reaches no row < n.
+// Follow with __syncwarp before another lane reads Lp.
+template <typename T, int R, int JS>
+__device__ __forceinline__ void warp_factor(T (&h)[R][32 * R], T* Lp, T* col, int n, int lane) {
+  constexpr int KP = 32 * R, V = 16 / (int)sizeof(T), NC = KP / V;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    if (k >= n) break;
+    const int sk = k / 32;
+    const int own = lane + 32 * sk;
+    const T hk_own = k < JS ? (own >= k ? Lp[tri(own) + k] : T(0)) : h[sk][k];
+    const T piv = root(__shfl_sync(0xffffffffu, hk_own, k % 32));
+    const T ip = div(T(1), piv);
+    T* cb = col + (k & 1) * KP;
+    T l[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (s < sk) continue;  // rows < 32 (s + 1) <= k: finished
+      const int row = lane + 32 * s;
+      const T hk = k < JS ? (row >= k ? Lp[tri(row) + k] : T(0)) : h[s][k];
+      l[s] = hk * ip;
+      cb[row] = l[s];
+      if (row >= k) Lp[tri(row) + k] = row == k ? piv : l[s];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = (k + 1) / V; c < NC; ++c) {
+      T x[V];
+      ld16(cb + c * V, x);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        if (s < sk || c * V >= 32 * (s + 1)) continue;
+        const int row = lane + 32 * s;
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const int j = c * V + q;
+          if (j <= k) continue;
+          if (j >= JS) h[s][j] -= l[s] * x[q];
+          else if (j <= row) Lp[tri(row) + j] -= l[s] * x[q];
+        }
+      }
+    }
   }
 }
 

@@ -20,7 +20,8 @@ plain versions.
   * `cholesky` (Kernel E): L with L L^T = A, replacing
     linalg_kernels.py::cholesky_batched (body _chol_kernel), the vmap rule
     of physics/linalg.py::cholesky. Only the contact QP's implicit-function
-    derivative calls it (ops/qp.py), once per substep under forward AD.
+    derivative calls it (ops/qp.py), once per substep under forward AD, at
+    n = K = 32.
 
 On a CUDA tensor each wrapper launches its kernel, built from csrc/. What
 bounds them on the H100: at n=75 a system moves 12 KB (m=1) to 35 KB (C
@@ -35,17 +36,21 @@ in float32 the byte bound is 0.015 to 0.042 ms, while every kernel runs n to
     blocks (D's wide form) above. `chol_solve_route` picks the form by
     shape; above n = 176, or where the tiled form's shared memory does not
     fit, it picks the column kernel.
-  * chol_solve.cu, the column kernel (chol_solve_kernel, A above n = 176,
-    and E through the same device code with the factor stored and no
-    right-hand side): one thread block per system, the matrix and the
-    right-hand side in shared memory, the column recurrences with block
-    barriers between columns (3n in the factor, 4n more in the two
-    substitutions): bound by that barrier chain.
+  * chol_solve.cu, the column kernel (chol_solve_kernel, A and E above
+    n = 176, E with the factor stored and no right-hand side): one thread
+    block per system, the matrix and the right-hand side in shared memory,
+    the column recurrences with block barriers between columns (3n in the
+    factor, 4n more in the two substitutions): bound by that barrier chain.
   * cho_factor_solve.cu (C): one block per system, each thread keeps fixed
     4x4 tiles of the lower triangle in registers; a blocked right-looking
     factor over 4-column panels, two barriers per panel, 64 FMAs per tile
     and panel from vector reads of a shared panel buffer; the substitutions
-    run warp-synchronously on the factor packed in shared memory.
+    run warp-synchronously on the factor packed in shared memory. E at
+    64 < n <= 176 is the same kernel without the solve.
+  * cho_factor_solve.cu, E at n <= 64 (cholesky_warp_kernel): a warp per
+    system, one system to a block, no block barrier; B's warp factor (tri::warp_factor) without the mask, one
+    shuffle and one published column per pivot. `cholesky_route` picks
+    E's form by shape.
   * solve_lower.cu (D): the lower triangle in shared memory (lower entries
     only, loaded in batches all in flight), the right-hand side in
     registers, no block barrier after the load. m <= 4: a warp per column
@@ -86,6 +91,9 @@ _SL_MAX_N = 256
 # Kernel A solves with a warp per rhs column up to this m, with a thread per
 # column above it
 CHOL_SOLVE_WARP_MAX_M = 4
+# Kernel E factors with a warp per system up to this n (two rows per lane),
+# with C's tiled factor up to _CFS_MAX_N, with the column kernel above
+CHOLESKY_WARP_MAX_N = 64
 
 
 def cholesky_plain(H: torch.Tensor) -> torch.Tensor:
@@ -308,19 +316,37 @@ def solve_lower(L: torch.Tensor, b: torch.Tensor, trans: bool = False) -> torch.
 solve_lower.launches = 0
 
 
+def cholesky_route(n: int, itemsize: int) -> str:
+    """Which kernel `cholesky` launches for (B,n,n) systems of `itemsize`
+    bytes: "warp" (a warp per system), "tiled" (Kernel C's tiled factor with
+    its L store and no solve) where its register tiles hold n and its shared
+    memory fits, or "column" (the column kernel). A dispatch on shape only."""
+    if n <= CHOLESKY_WARP_MAX_N:
+        return "warp"
+    if n <= _CFS_MAX_N and itemsize * (16 + 16 * ((n + 3) // 4) + _tri(n)) <= _SMEM_MAX:
+        return "tiled"
+    return "column"
+
+
 def cholesky(A: torch.Tensor) -> torch.Tensor:
     """L (B,n,n), the lower Cholesky factor of each SPD A (B,n,n), with exact
     zeros above the diagonal; only the lower triangle of A is read."""
     if not _check("cholesky", A):
         return cholesky_plain(A)
     Bn, n = A.shape[:2]
-    if A.element_size() * n * n > _SMEM_MAX:
+    route = cholesky_route(n, A.element_size())
+    if route == "column" and A.element_size() * n * n > _SMEM_MAX:
         raise ValueError(f"cholesky: n={n} exceeds a block's shared memory")
     L = torch.empty_like(A)
-    name = "cholesky_f32" if A.dtype == torch.float32 else "cholesky_f64"
-    fn = _build.kernel("chol_solve.cu", name)
+    suffix = "f32" if A.dtype == torch.float32 else "f64"
+    ptrs = (A.data_ptr(), L.data_ptr(), Bn, n)
     with torch.cuda.device(A.device):
-        status = fn(A.data_ptr(), L.data_ptr(), Bn, n, _stream(A))
+        if route == "column":
+            name = f"cholesky_{suffix}"
+            status = _build.kernel("chol_solve.cu", name)(*ptrs, _stream(A))
+        else:
+            name = f"cholesky_{route}_{suffix}"
+            status = _build.kernel("cho_factor_solve.cu", name)(*ptrs, _stream(A))
     _build.check(status, name)
     cholesky.launches += 1
     return L
@@ -343,17 +369,19 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def kernel_attributes() -> list[dict]:
     """cudaFuncGetAttributes of every instantiation of Kernels A (tiled), B
-    (warp form), C and D: registers and local memory (spills) per thread, by
-    type and tile (A: tiles per thread TPT and solve rows per lane R, R = 0
-    for a thread per column; B: rows per lane R and the systems an SM holds
-    at once; C: TPT and R; D: its form and rows per lane or per register
-    block R)."""
+    (warp form), C, D and E (warp and tiled forms): registers and local
+    memory (spills) per thread, by type and tile (A: tiles per thread TPT and
+    solve rows per lane R, R = 0 for a thread per column; B: rows per lane R
+    and the systems an SM holds at once; C: TPT and R; D: its form and rows
+    per lane or per register block R; E: TPT, 0 for the warp form, and rows
+    per lane R)."""
     out = []
     for src, kind, entry, keys in (
             ("chol_solve.cu", "chol_solve", "chol_solve_tiled_attrs", ("TPT", "R")),
             ("newton_qp.cu", "newton_qp", "newton_qp_warp_attrs", ("R", "resident_per_sm")),
             ("cho_factor_solve.cu", "cho_factor_solve", "cho_factor_solve_attrs", ("TPT", "R")),
-            ("solve_lower.cu", "solve_lower", "solve_lower_attrs", ("warp_per_column", "R"))):
+            ("solve_lower.cu", "solve_lower", "solve_lower_attrs", ("warp_per_column", "R")),
+            ("cho_factor_solve.cu", "cholesky", "cholesky_attrs", ("TPT", "R"))):
         fn = _build.kernel(src, entry)
         i = 0
         while True:

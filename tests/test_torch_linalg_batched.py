@@ -12,6 +12,10 @@ taken from real substeps.
     and linalg.cho_factor_solve vs jax.vmap(cho_factor_solve), on random
     SPD systems with 7.0 or NaN above the diagonal of the port's input:
     only the lower triangle is read;
+  * linalg.cholesky (Kernel E's plain version) vs
+    jax.vmap(physics.linalg._cholesky_ref) on both sides of every boundary
+    of linalg.cholesky_route, in float64 and float32, and with 7.0 or NaN
+    above the diagonal of the port's input; the route at its boundaries;
   * dynamics.smooth_dynamics vs jax.vmap(dynamics.smooth_dynamics);
   * solver.solve_constraints_gram vs jax.vmap(solver.solve_constraints) at
     K = 32 and 64, cold and warm started;
@@ -153,6 +157,40 @@ def test_cho_factor_solve_plain_reads_only_the_lower_triangle(n, fill):
     L, x = linalg.cho_factor_solve(_garbage(T(A), fill), T(b))
     assert rel_err(L_j, L) < 1e-9 and rel_err(x_j, x) < 1e-9
     assert bool((torch.triu(L, 1) == 0).all())
+
+
+def test_cholesky_route_boundaries():
+    route = linalg.cholesky_route
+    for itemsize in (4, 8):
+        assert route(1, itemsize) == route(64, itemsize) == "warp"
+        assert route(65, itemsize) == route(176, itemsize) == "tiled"
+        assert route(177, itemsize) == "column"
+    assert linalg.CHOLESKY_WARP_MAX_N == 64
+
+
+# n: one and two rows per lane of the warp form at its edges (32, 33, 64),
+# the tiled form's first (65) and the column kernel's first (177)
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [32, 33, 64, 65, 177])
+def test_cholesky_plain_matches_jax_at_dispatch_shapes(n, dtype):
+    A, _, _ = _spd(n, 100 + n)
+    A = A.astype(np.float32 if dtype == jnp.float32 else np.float64)
+    launches = linalg.cholesky.launches
+    L = linalg.cholesky(T(A, TORCH_DTYPE[dtype]))
+    L_j = jax.jit(jax.vmap(jax_linalg._cholesky_ref))(jnp.asarray(A, dtype))
+    assert linalg.cholesky.launches == launches
+    assert L.dtype == TORCH_DTYPE[dtype] and rel_err(L_j, L) < TOLS[dtype]
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.parametrize("fill", [7.0, float("nan")], ids=["7", "nan"])
+@pytest.mark.parametrize("n", [32, 75])
+def test_cholesky_plain_reads_only_the_lower_triangle(n, fill):
+    A, _, _ = _spd(n, n)
+    L_j = jax.jit(jax.vmap(jax_linalg._cholesky_ref))(jnp.asarray(A))
+    L = linalg.cholesky(_garbage(T(A), fill))
+    assert rel_err(L_j, L) < 1e-9
+    assert torch.equal(L, linalg.cholesky(T(A)))
 
 
 def test_smooth_dynamics_matches_jax(substeps):

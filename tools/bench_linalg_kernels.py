@@ -4,7 +4,10 @@ kernels (ops/linalg.py) against their PyTorch library calls, on one GPU.
     python3 tools/bench_linalg_kernels.py
 
 Inputs are random SPD float32 systems at the port's shapes (n=75; B=4096,
-and B=880 for D at m=75 and E at n=32), made from seed 0 on the card, and
+and B=880 for D at m=75 and E at n=32), made from seed 0 on the card; for
+Kernel E also each of its forms through its raw entry point (the column
+kernel, the tiled form, the warp form) at n=32, and the wrapper beside the
+column kernel at n=64 and 75; and
 for Kernel B 4096 random Delassus-like K=32 systems (A = J J^T / 75 +
 1e-3 I, 80% of the rows active), solved at tol 0 so that every system runs
 all 16 iterations: B's graph_ms / 16 is the time of one iteration with the
@@ -104,6 +107,7 @@ def main() -> None:
     A = spd(4096, 75)
     L = linalg.cholesky_plain(A.double()).float().contiguous()
     A880, H880 = spd(880, 75), spd(880, 32)
+    H64 = spd(880, 64)
     b33 = rhs(4096, 75, 33)
     J = torch.randn(4096, 32, 75, generator=g, device=dev, dtype=torch.float64)
     Aq = (J @ J.mT / 75 + 1e-3 * torch.eye(32, device=dev, dtype=torch.float64)).float()
@@ -116,6 +120,19 @@ def main() -> None:
 
     def lib_cfs(A_, b_):
         return torch.cholesky_solve(b_, torch.linalg.cholesky_ex(A_)[0])
+
+    def e_raw(src, name):
+        """An uncounted call of one of Kernel E's raw entry points."""
+        def call(H_):
+            L_ = torch.empty_like(H_)
+            _build.check(_build.kernel(src, name)(
+                H_.data_ptr(), L_.data_ptr(), *H_.shape[:2],
+                torch.cuda.current_stream().cuda_stream), name)
+            return L_
+        return call
+
+    lib_chol = lambda H_: torch.linalg.cholesky_ex(H_)[0]
+    column = e_raw("chol_solve.cu", "cholesky_f32")
 
     # name: (kernel call, library call, batch-sliceable inputs); the library
     # calls of C, A and E are not captured in a graph
@@ -141,8 +158,16 @@ def main() -> None:
         "A chol_solve m=33": (linalg.chol_solve, lib_cfs, (A, b33)),
         "B newton_qp K=32 tol 0": (lambda *a: qp.newton_qp(*a, 16, 0.0), None,
                                    (Aq, bq, aq, f0q)),
-        "E cholesky K=32 B=880": (linalg.cholesky, lambda H_: torch.linalg.cholesky_ex(H_)[0],
-                                  (H880,)),
+        "E cholesky K=32 B=880": (linalg.cholesky, lib_chol, (H880,)),
+        "E cholesky K=32 B=880 column form": (column, None, (H880,)),
+        "E cholesky K=32 B=880 tiled form": (e_raw("cho_factor_solve.cu", "cholesky_tiled_f32"),
+                                             None, (H880,)),
+        "E cholesky K=32 B=880 warp form": (e_raw("cho_factor_solve.cu", "cholesky_warp_f32"),
+                                            None, (H880,)),
+        "E cholesky n=64 B=880": (linalg.cholesky, lib_chol, (H64,)),
+        "E cholesky n=64 B=880 column form": (column, None, (H64,)),
+        "E cholesky n=75 B=880": (linalg.cholesky, lib_chol, (A880,)),
+        "E cholesky n=75 B=880 column form": (column, None, (A880,)),
     }
     out = {}
     for name, (kern, lib, args) in cases.items():
