@@ -99,15 +99,47 @@ Phases (any failure exits non-zero):
      kernel, float32 only; float64 must raise); float64 elementwise within
      1e-9, float32 by |L L^T - A| / |A| within 1e-5, exact zeros above the
      diagonal; 7.0 and NaN above the diagonal change no bit; a NaN system
-     in a batch of 33 changes no bit of the other 32.
+     in a batch of 33 changes no bit of the other 32;
+ 14. the getup path: default_humanoid(float32) -> HumanoidGetup with the
+     per-reset Fall init -> reset(4096) (the Fall's 3 control steps: 90
+     chol_solve + 45 newton_qp launches) -> 8 x step_autoreset with
+     uniform random actions, each 120 chol_solve + 60 newton_qp launches
+     (the Fall is computed for every env and selected where one finished,
+     as the JAX package's vmapped step_autoreset does); finite state,
+     env-steps/s, overflow and stalled shares; no env terminates while its
+     recovery counter is > 0, and a step with half the counters spent
+     terminates only those envs; then a pool of 4096 Fall states
+     (GetupConfig(fall_init_pool=4096)), its build time, and 4 x
+     step_autoreset at 30 + 15 launches each, the reset launching none;
+ 15. Kernels A and B against their plain versions on the systems of a
+     real substep of phase 14's getup states, with phase 2's checks and
+     timings; B's mean and maximum iterations and the share of systems
+     with all K rows active;
+ 16. HumanoidReach with observation v2: reset(4096), 4 x step_autoreset
+     (30 + 15 launches each), the observation's width, finite state,
+     env-steps/s;
+ 17. the perturbation hooks at 4096 envs from the standing pose, 25
+     control steps of 5 substeps at zero actions: one ball per env
+     (tests/test_projectiles.py's: radius 0.12, inverse mass 0.5, from
+     (1.2, -0.2, 0.85) at -10 m/s; 250 chol_solve + 125 newton_qp
+     launches) does not pass through (final x-velocity > -9) and shoves
+     the root by more than 0.05 m against a run with the ball at rest; a
+     50 N push on the root moves it along the push in every env; then card
+     vs CPU with both hooks (the push, and a ball thrown at each root), 16
+     envs from Fall init states, 2 control steps of 3 substeps at
+     half-scale random actions (the Fall states are chaotic over longer
+     windows: on the CPU two float32 runs 1e-6 apart part by 0.04 after 2
+     control steps of 15 substeps, by 6e-5 at most after 2 of 3): qpos and
+     the ball positions within 5e-3, at least 3/4 of the balls met.
 
-Phases 3, 6 and 9 each set every launch count to 0 just before and read
-them just after. The third-to-last line is the `kernels` JSON object, the
+Phases 3, 6, 9, 14, 16 and 17's projectile run each set every launch
+count to 0 just before and read them just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -129,6 +161,8 @@ TORQUE_CMP = ((0.5, 3, 1), (0.003, CFI, 2))
 N_POINTS = 4
 CMP_CFI = 2
 ILQR_ITERS = 2
+# phase 17: substeps per control step of the card-vs-CPU check from Fall states
+PERTURB_CMP_CFI = 3
 # phase 3's solver health with A's column kernel and B's block form, same
 # seed, draw and card: a kernel change that moves them moves the operating
 # point
@@ -566,12 +600,173 @@ def edge_cases_e(linalg, dev) -> None:
     print("  ok: 7.0 and NaN above the diagonal change no bit of E's factor", flush=True)
 
 
+def substep_inputs(model, state, act) -> dict:
+    """The inputs of Kernels A and B at one real substep of an env state:
+    stable-PD's (M_prev + dt diag(kd)) system with its right-hand side,
+    the smooth + Delassus system M [qfrc | J^T] and the QP of the compact
+    rows, under the PD target of the actions `act`."""
+    from smplsim_tpu_torch.ops import linalg
+    from smplsim_tpu_torch.physics import constraints, control, dynamics, kinematics, solver
+
+    q, v = state.phys.qpos, state.phys.qvel
+    M_prev, C_prev, f_w = state.pd_cache
+    target = control.pd_target_from_action(model, act)
+    rhs1, diag1, _ = control.stable_pd_system(model, C_prev, q, v, target)
+    kin = kinematics.fk(model, q)
+    M = dynamics.mass_matrix(model, kin)
+    C = dynamics.bias_forces(model, kin, v)
+    tau = control.stable_pd_torque(model, M_prev, C_prev, q, v, target)
+    z6 = torch.zeros((q.shape[0], 6), device=q.device)
+    qfrc = torch.cat([z6, model.gear * tau], 1) - model.dof_damping * v - C
+    efc = constraints.make_efc(model, kin, q, v)
+    K = min(QP["qp_rows"], constraints.NEFC)
+    rows = solver.select_rows(model, kin.S, efc, f_w, K)
+    rhs33 = solver.smooth_rhs(qfrc, rows)
+    A_qp, b_qp = solver.delassus(rows, linalg.chol_solve_plain(M, rhs33))
+    nact = efc.active.sum(1)
+    print(f"  inputs: M_prev {tuple(M_prev.shape)}, rhs {tuple(rhs1.shape)} and "
+          f"{tuple(rhs33.shape)}, QP {tuple(A_qp.shape)}, active rows per env "
+          f"mean {nact.float().mean().item():.2f} max {int(nact.max())}, systems with all "
+          f"{K} compact rows active {(rows.actf.sum(1) == K).float().mean().item():.4f}",
+          flush=True)
+    return dict(chol={"m=1,diag": (M_prev, rhs1, diag1), "m=33": (M, rhs33, None)},
+                qp=(A_qp, b_qp, rows.actf, rows.f0),
+                full_rows=(rows.actf.sum(1) == K).float().mean().item())
+
+
+def hold_a_b(tag: str, inputs: dict) -> dict:
+    """Kernels A (chol_solve at m=1 + diag and m=33) and B (newton_qp)
+    against their plain versions on `inputs` (substep_inputs): float64
+    elementwise, float32 by residual, objective and KKT; times of kernel,
+    plain version, library call and the previous forms (A's column kernel
+    and both solve forms through their raw entry points, B's block form),
+    failing unless the wrappers' kernels are the faster. Returns the
+    report entries "m=1,diag", "m=33" and "qp"; `tag` prefixes the
+    printed names."""
+    from smplsim_tpu_torch.ops import _build, linalg, qp
+
+    report = {}
+    chol_cases = inputs["chol"]
+    A_qp, b_qp, act_qp, f0_qp = inputs["qp"]
+    for name, (A, b, d) in chol_cases.items():
+        for dt in (torch.float64, torch.float32):
+            Ad, bd = A.to(dt).contiguous(), b.to(dt).contiguous()
+            dd = None if d is None else d.to(dt).contiguous()
+            xk = linalg.chol_solve(Ad, bd, dd)
+            torch.cuda.synchronize()
+            xp = linalg.chol_solve_plain(Ad, bd, dd)
+            check(bool(torch.isfinite(xk).all()), f"{tag}chol_solve[{name}] {dt} finite")
+            if dt == torch.float64:
+                rel = ((xk - xp).abs().amax() / xp.abs().amax()).item()
+                check(rel <= 1e-9, f"{tag}chol_solve[{name}] float64 vs plain: {rel:.3e} <= 1e-9")
+            else:
+                H = Ad if dd is None else Ad + torch.diag_embed(dd)
+                resid = lambda x_: ((H @ x_ - bd).abs().amax((1, 2))
+                                    / (H.abs().amax((1, 2)) * x_.abs().amax((1, 2))
+                                       + bd.abs().amax((1, 2)))).amax().item()
+                res = resid(xk)
+                check(res <= 1e-5, f"{tag}chol_solve[{name}] float32 relative residual "
+                                   f"{res:.3e} <= 1e-5")
+                err = (xk - xp).abs().amax().item()
+                rel = ((xk - xp).abs().amax((1, 2)) / xp.abs().amax((1, 2))).amax().item()
+                ms = cuda_ms(lambda: linalg.chol_solve(Ad, bd, dd), 20)
+                plain = cuda_ms(lambda: linalg.chol_solve_plain(Ad, bd, dd), 3)
+                # the control: the column kernel and both solve forms of the
+                # tiled kernel through their raw entry points, same inputs
+                xo = torch.empty_like(bd)
+                prev = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo), 20)
+                forms = {}
+                for form, fname in ((0, "warp"), (1, "thread")):
+                    chol_solve_raw(_build, Ad, bd, dd, xo, form)
+                    fres = resid(xo)
+                    check(fres <= 1e-5, f"{tag}chol_solve[{name}] float32, {fname} form: relative "
+                                        f"residual {fres:.3e} <= 1e-5")
+                    forms[fname] = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo, form), 20)
+                route = linalg.chol_solve_route(*bd.shape[1:], 4)
+                check(ms < prev, f"{tag}chol_solve[{name}]: the tiled kernel ({route} form, "
+                                 f"{ms:.4f} ms) is faster than the column kernel ({prev:.4f} ms) "
+                                 "in this call")
+
+                def library():
+                    L = torch.linalg.cholesky(H if dd is None else Ad + torch.diag_embed(dd))
+                    return torch.cholesky_solve(bd, L)
+                lib = cuda_ms(library, 10)
+                Bn, n, m = bd.shape
+                nbytes = 4 * Bn * (n * (n + 1) / 2 + 2 * n * m + (n if dd is not None else 0))
+                flops = Bn * (n ** 3 / 3 + 2 * n * n * m)
+                bms, by = bound_ms(nbytes, flops, dt)
+                report[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
+                                    library_ms=lib, bound_ms=bms, bound_by=by, route=route,
+                                    previous_ms=prev, forms_ms=forms)
+                print(f"  {tag}chol_solve[{name}] f32: kernel {ms:.4f} ms ({route} form; raw warp "
+                      f"form {forms['warp']:.4f}, thread form {forms['thread']:.4f}; column "
+                      f"kernel {prev:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}), max|kernel-plain| {err:.3e} (per system, relative "
+                      f"to max|plain|: {rel:.3e})", flush=True)
+
+    for dt in (torch.float64, torch.float32):
+        A, b = A_qp.to(dt).contiguous(), b_qp.to(dt).contiguous()
+        a, f0 = act_qp.to(dt).contiguous(), f0_qp.to(dt).contiguous()
+        tol = 1e-12 if dt == torch.float64 else QP["qp_tol"]
+        it = QP["qp_iters"]
+        fk = qp.newton_qp(A, b, a, f0, it, tol)
+        torch.cuda.synchronize()
+        fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
+        check(bool(torch.isfinite(fk).all()), f"{tag}newton_qp {dt} finite")
+        obj = lambda f: 0.5 * (f * (A @ f[..., None])[..., 0]).sum(-1) - (b * f).sum(-1)
+        ok_, op_ = obj(fk), obj(fp)
+        orel = ((ok_ - op_).abs() / op_.abs().clamp_min(1e-12)).amax().item()
+        tol_sys = tol * (1.0 + b.abs().amax(-1))
+        kk, kp = qp.kkt_residual(A, b, fk, a), qp.kkt_residual(A, b, fp, a)
+        conv_p, conv_k = kp <= tol_sys, kk <= tol_sys
+        if dt == torch.float64:
+            # elementwise where both solves met the tolerance. Elsewhere the
+            # line search met candidates whose objectives tie to rounding,
+            # and the kernel's summation order may break such a tie the
+            # other way than the plain version's: those systems are held by
+            # objective and KKT residual below.
+            both = conv_p & conv_k
+            rel = ((fk - fp).abs() / (1.0 + fp.abs())).amax(1)
+            print(f"  {tag}newton_qp float64: {int(both.sum())} of {both.numel()} systems meet tol "
+                  f"1e-12 within {it} iterations in both; {int((conv_p ^ conv_k).sum())} in "
+                  f"one only; |k-p|/(1+|p|) max {rel[both].max().item():.3e} over the first, "
+                  f"{rel[~both].max().item() if (~both).any() else 0.0:.3e} over the rest",
+                  flush=True)
+            check(rel[both].max().item() <= 1e-9,
+                  "newton_qp float64 vs plain elementwise <= 1e-9 where both converge")
+            check(orel <= 1e-12, f"{tag}newton_qp float64 objective within {orel:.3e} <= 1e-12")
+        else:
+            check(orel <= 1e-4, f"{tag}newton_qp float32 objective within {orel:.3e} <= 1e-4")
+        # the KKT residual: where the plain version meets its tolerance the
+        # kernel meets it too, but for the rounding-tie systems above
+        only_p, only_k = int((conv_p & ~conv_k).sum()), int((conv_k & ~conv_p).sum())
+        print(f"  {tag}newton_qp {dt}: plain meets tol in {int(conv_p.sum())}, kernel in "
+              f"{int(conv_k.sum())}; only plain {only_p}, only kernel {only_k}", flush=True)
+        check(only_p <= conv_p.numel() // 100,
+              f"{tag}newton_qp {dt}: the kernel misses the tolerance on at most 1% of the systems "
+              f"where the plain version meets it ({only_p})")
+        if dt != torch.float32:
+            continue
+        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol)
+        r = report["qp"]
+        print(f"  {tag}newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), iterations mean "
+              f"{r['iterations_mean']:.2f} max {r['iterations_max']}, max|kernel-plain| "
+              f"{r['max_abs_err']:.3e} (per system, relative to max|plain|: "
+              f"{r['max_rel_err']:.3e})", flush=True)
+
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from smplsim_tpu_torch.control import ILQRConfig, ilqr_plan, jacobians
-    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.envs import (GetupConfig, HumanoidGetup, HumanoidReach,
+                                        HumanoidSpeed, ReachConfig, SpeedConfig)
+    from smplsim_tpu_torch.envs import obs as obs_mod
     from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import _build, linalg, qp
     from smplsim_tpu_torch.physics import (constraints, control, dynamics, engine,
@@ -614,136 +809,8 @@ def main() -> None:
     state = env.reset(B_MAIN, gen)
     for _ in range(3):
         state = env.step_autoreset(state, action(B_MAIN))
-    q, v = state.phys.qpos, state.phys.qvel
-    M_prev, C_prev, f_w = state.pd_cache
-    target = control.pd_target_from_action(model, action(B_MAIN))
-    rhs1, diag1, _ = control.stable_pd_system(model, C_prev, q, v, target)
-    kin = kinematics.fk(model, q)
-    M = dynamics.mass_matrix(model, kin)
-    C = dynamics.bias_forces(model, kin, v)
-    tau = control.stable_pd_torque(model, M_prev, C_prev, q, v, target)
-    z6 = torch.zeros((B_MAIN, 6), device=dev)
-    qfrc = torch.cat([z6, model.gear * tau], 1) - model.dof_damping * v - C
-    efc = constraints.make_efc(model, kin, q, v)
     K = min(QP["qp_rows"], constraints.NEFC)
-    rows = solver.select_rows(model, kin.S, efc, f_w, K)
-    rhs33 = solver.smooth_rhs(qfrc, rows)
-    A_qp, b_qp = solver.delassus(rows, linalg.chol_solve_plain(M, rhs33))
-    act_qp, f0_qp = rows.actf, rows.f0
-    print(f"  inputs: M_prev {tuple(M_prev.shape)}, rhs {tuple(rhs1.shape)} and "
-          f"{tuple(rhs33.shape)}, QP {tuple(A_qp.shape)}, active rows per env "
-          f"mean {efc.active.sum(1).float().mean().item():.2f} "
-          f"max {int(efc.active.sum(1).max())}", flush=True)
-
-    report = {}
-    chol_cases = {"m=1,diag": (M_prev, rhs1, diag1), "m=33": (M, rhs33, None)}
-    for name, (A, b, d) in chol_cases.items():
-        for dt in (torch.float64, torch.float32):
-            Ad, bd = A.to(dt).contiguous(), b.to(dt).contiguous()
-            dd = None if d is None else d.to(dt).contiguous()
-            xk = linalg.chol_solve(Ad, bd, dd)
-            torch.cuda.synchronize()
-            xp = linalg.chol_solve_plain(Ad, bd, dd)
-            check(bool(torch.isfinite(xk).all()), f"chol_solve[{name}] {dt} finite")
-            if dt == torch.float64:
-                rel = ((xk - xp).abs().amax() / xp.abs().amax()).item()
-                check(rel <= 1e-9, f"chol_solve[{name}] float64 vs plain: {rel:.3e} <= 1e-9")
-            else:
-                H = Ad if dd is None else Ad + torch.diag_embed(dd)
-                resid = lambda x_: ((H @ x_ - bd).abs().amax((1, 2))
-                                    / (H.abs().amax((1, 2)) * x_.abs().amax((1, 2))
-                                       + bd.abs().amax((1, 2)))).amax().item()
-                res = resid(xk)
-                check(res <= 1e-5, f"chol_solve[{name}] float32 relative residual "
-                                   f"{res:.3e} <= 1e-5")
-                err = (xk - xp).abs().amax().item()
-                rel = ((xk - xp).abs().amax((1, 2)) / xp.abs().amax((1, 2))).amax().item()
-                ms = cuda_ms(lambda: linalg.chol_solve(Ad, bd, dd), 20)
-                plain = cuda_ms(lambda: linalg.chol_solve_plain(Ad, bd, dd), 3)
-                # the control: the column kernel and both solve forms of the
-                # tiled kernel through their raw entry points, same inputs
-                xo = torch.empty_like(bd)
-                prev = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo), 20)
-                forms = {}
-                for form, fname in ((0, "warp"), (1, "thread")):
-                    chol_solve_raw(_build, Ad, bd, dd, xo, form)
-                    fres = resid(xo)
-                    check(fres <= 1e-5, f"chol_solve[{name}] float32, {fname} form: relative "
-                                        f"residual {fres:.3e} <= 1e-5")
-                    forms[fname] = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo, form), 20)
-                route = linalg.chol_solve_route(*bd.shape[1:], 4)
-                check(ms < prev, f"chol_solve[{name}]: the tiled kernel ({route} form, {ms:.4f} "
-                                 f"ms) is faster than the column kernel ({prev:.4f} ms) in this "
-                                 "call")
-
-                def library():
-                    L = torch.linalg.cholesky(H if dd is None else Ad + torch.diag_embed(dd))
-                    return torch.cholesky_solve(bd, L)
-                lib = cuda_ms(library, 10)
-                Bn, n, m = bd.shape
-                nbytes = 4 * Bn * (n * (n + 1) / 2 + 2 * n * m + (n if dd is not None else 0))
-                flops = Bn * (n ** 3 / 3 + 2 * n * n * m)
-                bms, by = bound_ms(nbytes, flops, dt)
-                report[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
-                                    library_ms=lib, bound_ms=bms, bound_by=by, route=route,
-                                    previous_ms=prev, forms_ms=forms)
-                print(f"  chol_solve[{name}] f32: kernel {ms:.4f} ms ({route} form; raw warp "
-                      f"form {forms['warp']:.4f}, thread form {forms['thread']:.4f}; column "
-                      f"kernel {prev:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by}), max|kernel-plain| {err:.3e} (per system, relative "
-                      f"to max|plain|: {rel:.3e})", flush=True)
-
-    for dt in (torch.float64, torch.float32):
-        A, b = A_qp.to(dt).contiguous(), b_qp.to(dt).contiguous()
-        a, f0 = act_qp.to(dt).contiguous(), f0_qp.to(dt).contiguous()
-        tol = 1e-12 if dt == torch.float64 else QP["qp_tol"]
-        it = QP["qp_iters"]
-        fk = qp.newton_qp(A, b, a, f0, it, tol)
-        torch.cuda.synchronize()
-        fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
-        check(bool(torch.isfinite(fk).all()), f"newton_qp {dt} finite")
-        obj = lambda f: 0.5 * (f * (A @ f[..., None])[..., 0]).sum(-1) - (b * f).sum(-1)
-        ok_, op_ = obj(fk), obj(fp)
-        orel = ((ok_ - op_).abs() / op_.abs().clamp_min(1e-12)).amax().item()
-        tol_sys = tol * (1.0 + b.abs().amax(-1))
-        kk, kp = qp.kkt_residual(A, b, fk, a), qp.kkt_residual(A, b, fp, a)
-        conv_p, conv_k = kp <= tol_sys, kk <= tol_sys
-        if dt == torch.float64:
-            # elementwise where both solves met the tolerance. Elsewhere the
-            # line search met candidates whose objectives tie to rounding,
-            # and the kernel's summation order may break such a tie the
-            # other way than the plain version's: those systems are held by
-            # objective and KKT residual below.
-            both = conv_p & conv_k
-            rel = ((fk - fp).abs() / (1.0 + fp.abs())).amax(1)
-            print(f"  newton_qp float64: {int(both.sum())} of {both.numel()} systems meet tol "
-                  f"1e-12 within {it} iterations in both; {int((conv_p ^ conv_k).sum())} in "
-                  f"one only; |k-p|/(1+|p|) max {rel[both].max().item():.3e} over the first, "
-                  f"{rel[~both].max().item() if (~both).any() else 0.0:.3e} over the rest",
-                  flush=True)
-            check(rel[both].max().item() <= 1e-9,
-                  "newton_qp float64 vs plain elementwise <= 1e-9 where both converge")
-            check(orel <= 1e-12, f"newton_qp float64 objective within {orel:.3e} <= 1e-12")
-        else:
-            check(orel <= 1e-4, f"newton_qp float32 objective within {orel:.3e} <= 1e-4")
-        # the KKT residual: where the plain version meets its tolerance the
-        # kernel meets it too, but for the rounding-tie systems above
-        only_p, only_k = int((conv_p & ~conv_k).sum()), int((conv_k & ~conv_p).sum())
-        print(f"  newton_qp {dt}: plain meets tol in {int(conv_p.sum())}, kernel in "
-              f"{int(conv_k.sum())}; only plain {only_p}, only kernel {only_k}", flush=True)
-        check(only_p <= conv_p.numel() // 100,
-              f"newton_qp {dt}: the kernel misses the tolerance on at most 1% of the systems "
-              f"where the plain version meets it ({only_p})")
-        if dt != torch.float32:
-            continue
-        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol)
-        r = report["qp"]
-        print(f"  newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
-              f"plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), iterations mean "
-              f"{r['iterations_mean']:.2f} max {r['iterations_max']}, max|kernel-plain| "
-              f"{r['max_abs_err']:.3e} (per system, relative to max|plain|: "
-              f"{r['max_rel_err']:.3e})", flush=True)
+    report = hold_a_b("", substep_inputs(model, state, action(B_MAIN)))
 
     # ------------------------------------------------------------ 3. main path
     print("phase 3: main path", flush=True)
@@ -812,7 +879,8 @@ def main() -> None:
     qfrc = (dynamics.actuator_forces(model, tau) + dynamics.passive_forces(model, v)
             - dynamics.bias_forces(model, kin, v))[..., None]
     efc = constraints.make_efc(model, kin, q, v)
-    rows = solver.select_rows(model, kin.S, efc, torch.zeros_like(f_w), K)
+    rows = solver.select_rows(model, kin.S, efc, torch.zeros(B_MAIN, constraints.NEFC,
+                                                             device=dev), K)
     Jt = rows.J.transpose(1, 2).contiguous()
     L_p, qacc_s = linalg.cho_factor_solve_plain(M, qfrc)
     Y = linalg.solve_lower_plain(L_p, Jt)
@@ -1178,17 +1246,209 @@ def main() -> None:
     print("phase 13: kernel E on edge cases", flush=True)
     edge_cases_e(linalg, dev)
 
+    # ------------------------------------------------------- 14. getup path
+    print("phase 14: getup path (Fall init)", flush=True)
+    genv = HumanoidGetup(model, GetupConfig(), **QP)
+
+    def env_run(env_, n_steps, per_auto):
+        """reset(B_MAIN), then n_steps x step_autoreset with every launch
+        count set to 0 just before and read just after: checks the launches
+        per step_autoreset, finite state and, for a getup env, that no env
+        terminates while its recovery counter is > 0."""
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st = env_.reset(B_MAIN, gen)
+        torch.cuda.synchronize()
+        out = dict(reset_ms=(time.time() - t0) * 1e3,
+                   reset_launches=[fn.launches for fn in counted])
+        for fn in counted:
+            fn.launches = 0
+        ov = stl = 0.0
+        getup = hasattr(st.task, "recovery_counter")
+        suppressed_ok = True
+        t0 = time.time()
+        for _ in range(n_steps):
+            recovering = st.task.recovery_counter > 0 if getup else None
+            st = env_.step_autoreset(st, action(B_MAIN))
+            if getup:
+                suppressed_ok &= not bool((st.terminated & recovering).any())
+            ov += st.info["overflow"].float().mean()
+            stl += st.info["stalled"].float().mean()
+        torch.cuda.synchronize()
+        el = time.time() - t0
+        n_a, n_c, n_d, n_b, n_e = (fn.launches for fn in counted)
+        a_per, b_per = per_auto
+        check(n_a == a_per * n_steps and n_b == b_per * n_steps,
+              f"chol_solve {n_a} = {a_per} x {n_steps} and newton_qp {n_b} = {b_per} x {n_steps} "
+              "launches over the step_autoresets")
+        check(n_c == 0 and n_d == 0 and n_e == 0,
+              f"cho_factor_solve, solve_lower and cholesky not launched ({n_c}, {n_d}, {n_e})")
+        if getup:
+            check(suppressed_ok, "no env terminated while its recovery counter was > 0")
+        fin = all(bool(torch.isfinite(x).all()) for x in (
+            st.phys.qpos, st.phys.qvel, st.obs, st.reward, *st.pd_cache))
+        check(fin, "state finite")
+        check(st.obs.shape == (B_MAIN, env_.obs_size), f"obs shape {tuple(st.obs.shape)}")
+        out.update(state=st, rate=B_MAIN * n_steps / el, overflow=(ov / n_steps).item(),
+                   stalled=(stl / n_steps).item(), chol_solve=n_a, newton_qp=n_b,
+                   per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps})
+        return out
+
+    G_STEPS = 8
+    g_run = env_run(genv, G_STEPS, (4 * 2 * CFI, 4 * CFI))
+    gstate, g_reset_l = g_run["state"], g_run["reset_launches"]
+    check(g_reset_l[0] == 3 * 2 * CFI and g_reset_l[3] == 3 * CFI,
+          f"reset: the Fall's 3 control steps launched chol_solve {g_reset_l[0]} and "
+          f"newton_qp {g_reset_l[3]} times")
+    print(f"  {G_STEPS} step_autoresets x {B_MAIN} envs (per-reset Fall: 4 control steps each): "
+          f"{g_run['rate']:.1f} env-steps/s; reset(4096) {g_run['reset_ms']:.1f} ms; overflow "
+          f"fraction {g_run['overflow']:.5f}, stalled fraction {g_run['stalled']:.5f}; uhc_pd "
+          f"speed path in this call {rate:.1f} env-steps/s, on {card}", flush=True)
+    # termination while recovering: spend half the counters, step once
+    spent = torch.arange(B_MAIN, device=dev) % 2 == 0
+    probe = dataclasses.replace(gstate, task=dataclasses.replace(
+        gstate.task, recovery_counter=torch.where(spent, 0, gstate.task.recovery_counter)))
+    probe = genv.step(probe, action(B_MAIN))
+    check(not bool((probe.terminated & ~spent).any()) and bool(probe.terminated[spent].any()),
+          f"with half the recovery counters spent, only those envs terminate "
+          f"({int(probe.terminated[spent].sum())} of {int(spent.sum())} at the floor)")
+    t0 = time.time()
+    penv = HumanoidGetup(model, GetupConfig(fall_init_pool=B_MAIN), **QP)
+    torch.cuda.synchronize()
+    pool_s = time.time() - t0
+    p_run = env_run(penv, 4, (2 * CFI, CFI))
+    check(sum(p_run["reset_launches"]) == 0,
+          f"reset from the pool launches no kernel ({p_run['reset_launches']})")
+    print(f"  Fall pool of {B_MAIN} built in {pool_s:.3f} s; 4 step_autoresets from the pool: "
+          f"{p_run['rate']:.1f} env-steps/s (reset {p_run['reset_ms']:.1f} ms), overflow "
+          f"{p_run['overflow']:.5f}, stalled {p_run['stalled']:.5f}", flush=True)
+
+    # ---------------------------------- 15. Kernels A and B on getup inputs
+    print("phase 15: kernels A and B against their plain versions (getup inputs)", flush=True)
+    g_inputs = substep_inputs(model, gstate, action(B_MAIN))
+    report["getup"] = hold_a_b("getup ", g_inputs)
+    report["getup"]["full_rows"] = g_inputs["full_rows"]
+
+    # ------------------------------------------------ 16. reach, obs v2
+    print("phase 16: reach path with observation v2", flush=True)
+    renv = HumanoidReach(model, ReachConfig(self_obs_v=2), **QP)
+    check(renv.obs_size == obs_mod.self_obs_size(24, 2, True) + 3,
+          f"reach obs width {renv.obs_size} = self_obs_size(24, 2, True) + 3")
+    r_run = env_run(renv, 4, (2 * CFI, CFI))
+    print(f"  4 step_autoresets x {B_MAIN} envs: {r_run['rate']:.1f} env-steps/s, overflow "
+          f"{r_run['overflow']:.5f}, stalled {r_run['stalled']:.5f}", flush=True)
+
+    # ------------------------------------------------ 17. perturbation hooks
+    print("phase 17: ext_force and projectiles", flush=True)
+    stand = engine.PhysicsState(model.qpos0[None].repeat(B_MAIN, 1),
+                                torch.zeros(B_MAIN, model.nv, device=dev))
+    stand.qpos[:, 2] = 0.92
+    rad = torch.full((B_MAIN, 1), 0.12, device=dev)
+    inv = torch.full((B_MAIN, 1), 0.5, device=dev)
+    zero_act = torch.zeros(B_MAIN, model.nu, device=dev)
+    heading = torch.rand(B_MAIN, generator=gen, device=dev) * 2 * math.pi
+    push = torch.zeros(B_MAIN, model.nbody, 3, device=dev)
+    push[:, 0, 0], push[:, 0, 1] = 50.0 * torch.cos(heading), 50.0 * torch.sin(heading)
+
+    def perturbed(ball_vx, ext):
+        """25 control steps of 5 substeps from the standing pose, zero
+        actions, one ball per env from (1.2, -0.2, 0.85) (tests/test_projectiles.py)."""
+        st = stand
+        cache = engine.pd_cache(model, st) + (torch.zeros(B_MAIN, constraints.NEFC, device=dev),)
+        pp = torch.tensor([1.2, -0.2, 0.85], device=dev).repeat(B_MAIN, 1, 1)
+        pv = torch.tensor([ball_vx, 0.0, 0.0], device=dev).repeat(B_MAIN, 1, 1)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(25):
+            st, _, _, cache, (pp, pv) = engine.control_step(
+                model, st, zero_act, 5, cache, ext_force=ext, proj=(pp, pv, rad, inv), **QP)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / 25 * 1e3
+        check(bool(torch.isfinite(st.qpos).all() & torch.isfinite(pv).all()),
+              "perturbed state finite")
+        return st, pv, ms, [fn.launches for fn in counted]
+
+    still, _, _, _ = perturbed(0.0, None)
+    hit, pv_hit, ms_hit, l_hit = perturbed(-10.0, None)
+    shoved, _, ms_push, l_push = perturbed(0.0, push)
+    check(l_hit[0] == 25 * 5 * 2 and l_hit[3] == 25 * 5 and sum(l_hit) == 25 * 5 * 3,
+          f"projectile run: chol_solve {l_hit[0]} = 250, newton_qp {l_hit[3]} = 125 launches")
+    check(float(pv_hit[:, 0, 0].min()) > -9.0,
+          f"the ball does not pass through: final x-velocity >= "
+          f"{float(pv_hit[:, 0, 0].min()):.3f} > -9")
+    dx = hit.qpos[:, 0] - still.qpos[:, 0]
+    check(float(dx.max()) < -0.05, f"the ball shoves the root along -x by at least "
+                                   f"{-float(dx.max()):.4f} m > 0.05 against the undisturbed run")
+    along = ((shoved.qpos[:, :2] - still.qpos[:, :2])
+             * torch.stack([torch.cos(heading), torch.sin(heading)], 1)).sum(1)
+    check(float(along.min()) > 0.0, f"the 50 N push moves the root along it in every env "
+                                    f"(at least {float(along.min()):.4f} m)")
+    print(f"  {B_MAIN} envs x 25 control steps of 5 substeps: {ms_hit:.1f} ms per control step "
+          f"with a ball, {ms_push:.1f} ms with ext_force; root shoved by the ball "
+          f"{-float(dx.mean()):.4f} m on average, by the push {float(along.mean()):.4f} m; "
+          f"ball x-velocity at the end {float(pv_hit[:, 0, 0].mean()):.3f} m/s", flush=True)
+    # card vs CPU with both hooks, 16 envs from Fall init states, a ball
+    # thrown at each root, 2 control steps of PERTURB_CMP_CFI substeps. The
+    # Fall states are chaotic: on the CPU, over 64 of them, two float32 runs
+    # 1e-6 apart part by 0.04 after 2 control steps of 15 substeps even at
+    # zero actions (a float32 and a float64 run by 0.06), which would
+    # measure the chaos, not the card (an earlier check over 15 substeps
+    # read 2.674e-02 here); after 2 of 3 substeps at half-scale actions
+    # they part by 2e-5 to 6e-5 (float32 vs float64: 1.2e-5)
+    fst = genv.reset(n, gen).phys
+    cache_g = engine.pd_cache(model, fst) + (torch.zeros(n, constraints.NEFC, device=dev),)
+    pp = (fst.qpos[:, None, :3] + torch.tensor([0.25, 0.0, 0.0], device=dev)).contiguous()
+    pv = torch.tensor([-10.0, 0.0, 0.0], device=dev).repeat(n, 1, 1)
+    ext = push[:n]
+    hooks_gpu = dict(ext_force=ext, proj=(pp, pv, rad[:n], inv[:n]))
+    hooks_cpu = dict(ext_force=ext.cpu(), proj=(pp.cpu(), pv.cpu(), rad[:n].cpu(),
+                                                inv[:n].cpu()))
+    st_gpu, st_cpu = fst, engine.PhysicsState(fst.qpos.cpu(), fst.qvel.cpu())
+    cache_cpu = tuple(x.cpu() for x in cache_g)
+    for _ in range(2):
+        act = 0.5 * action(n)
+        st_gpu, _, _, cache_g, pr_gpu = engine.control_step(
+            model, st_gpu, act, PERTURB_CMP_CFI, cache_g, **hooks_gpu, **QP)
+        st_cpu, _, _, cache_cpu, pr_cpu = engine.control_step(
+            cpu_model, st_cpu, act.cpu(), PERTURB_CMP_CFI, cache_cpu, **hooks_cpu, **QP)
+        hooks_gpu["proj"] = pr_gpu + (rad[:n], inv[:n])
+        hooks_cpu["proj"] = pr_cpu + (rad[:n].cpu(), inv[:n].cpu())
+    diff = ((st_gpu.qpos.cpu() - st_cpu.qpos).abs() / (1.0 + st_cpu.qpos.abs())).amax().item()
+    pdiff = ((pr_gpu[0].cpu() - pr_cpu[0]).abs() / (1.0 + pr_cpu[0].abs())).amax().item()
+    check(diff <= 5e-3 and pdiff <= 5e-3,
+          f"card vs CPU with ext_force and a ball, from Fall init states, 2 control steps of "
+          f"{PERTURB_CMP_CFI} substeps: qpos {diff:.3e}, ball position {pdiff:.3e} <= 5e-3")
+    met = ((pr_cpu[1][:, 0, 0] + 10.0).abs() > 1.0).float().mean().item()
+    check(met >= 0.75, f"the balls met their humanoids in {met:.3f} >= 0.75 of the envs "
+                       "(x-velocity moved by more than 1 m/s)")
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
     d_names = list(d_cases)
-    paths = lambda uhc, torque, jac: dict(
-        launches=uhc + torque + jac,
-        launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque)},
-        launches_per_jacobian=jac)
+    runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run}
+    names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
+    ball = dict(zip(names, l_hit))
+
+    def paths(uhc, torque, jac, name):
+        """Launch counts of kernel `name` on every counted run of the main
+        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run."""
+        new = sum(r.get(name, 0) for r in runs4.values()) + ball[name]
+        return dict(
+            launches=uhc + torque + jac + new,
+            launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
+                                       "projectile": ball[name] / 25},
+            launches_per_jacobian=jac,
+            launches_per_step_autoreset={k: r["per_step"].get(name, 0)
+                                         for k, r in runs4.items()})
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:334", **paths(n_chol, t_chol, j_chol),
+             replaces="smplsim_tpu/ops/linalg_kernels.py:334",
+             **paths(n_chol, t_chol, j_chol, "chol_solve"),
              # the main path calls it once at each shape per substep: the
              # numbers are the mean of one launch of each
              **{k: mean(("m=1,diag", "m=33"), k)
@@ -1196,16 +1456,21 @@ def main() -> None:
              **{k: max(report["m=1,diag"][k], report["m=33"][k])
                 for k in ("max_abs_err", "max_rel_err")},
              bound_by=report["m=33"]["bound_by"],
-             shapes={k: report[k] for k in ("m=1,diag", "m=33")}),
+             shapes={**{k: report[k] for k in ("m=1,diag", "m=33")},
+                     **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")}}),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
-             replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp),
-             **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"]}),
+             replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
+             **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"],
+                                     "getup": {**report["getup"]["qp"],
+                                               "full_rows": report["getup"]["full_rows"]}}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:104", **paths(n_cfs, t_cfs, j_cfs),
+             replaces="smplsim_tpu/ops/linalg_kernels.py:104",
+             **paths(n_cfs, t_cfs, j_cfs, "cho_factor_solve"),
              **report["C"]),
         dict(name="solve_lower", route="cuda", source="smplsim_tpu_torch/ops/csrc/solve_lower.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:423", **paths(n_sl, t_sl, j_sl),
+             replaces="smplsim_tpu/ops/linalg_kernels.py:423",
+             **paths(n_sl, t_sl, j_sl, "solve_lower"),
              # the torque path launches it once at each shape per substep:
              # the numbers are the mean of one launch of each
              **{k: mean(d_names, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1215,11 +1480,12 @@ def main() -> None:
              shapes={k: report[k] for k in d_names + ["m=75"]}),
         dict(name="cholesky", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:410", **paths(n_e, t_e, j_e),
+             replaces="smplsim_tpu/ops/linalg_kernels.py:410", **paths(n_e, t_e, j_e, "cholesky"),
              **report["E"]),
     ]
     print(f"jacobian: {N_POINTS * reps} systems in {t_jac:.3f} s; ilqr: {s_iter:.3f} s per "
-          f"iteration", flush=True)
+          f"iteration; env-steps/s: speed {rate:.1f}, getup {g_run['rate']:.1f} (pool "
+          f"{p_run['rate']:.1f}), reach {r_run['rate']:.1f}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -13,12 +13,20 @@ Semantics follow the JAX package (and the reference simulator it mirrors):
     recomputed every substep, in the torque mode the action scaled by
     power_scale * torque_lim and clipped is the joint torque of all of them;
   * Default init: qpos = 0 except z = 0.94 and root quat (.5,.5,.5,.5);
+    Fall init: the drop pose (qpos = 0 except z = 0.3 and root quat
+    (1,0,0,0)) and 3 control steps of uniform random actions in
+    [-0.5, 0.5]; with fall_init_pool > 0 a pool of Fall states is simulated
+    once at construction and resets draw rows from it;
   * step ordering: update_task -> cache the root -> physics -> cur_t += 1
-    -> obs -> reward -> termination flags;
-  * termination: a floor contact of a geom outside contact_bodies;
-    truncation once cur_t exceeds episode_length;
+    -> obs -> reward -> termination flags -> task_termination;
+  * termination: a floor contact of a geom outside contact_bodies, unless
+    the task's task_termination hook suppresses it; truncation once cur_t
+    exceeds episode_length;
   * step_autoreset: envs that finished are replaced by a fresh reset, keeping
-    the finishing step's reward, flags and info.
+    the finishing step's reward, flags and info. The reset is computed for
+    every env and selected where done, as the JAX package's vmapped
+    step_autoreset does: with the per-reset Fall init a step_autoreset runs
+    4 control steps (the pool is the cure).
 
 The env's randomness is the torch.Generator it was reset with, carried in
 EnvState.rng; it must live on the model's device.
@@ -39,9 +47,13 @@ from smplsim_tpu_torch.physics.engine import PhysicsState
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
-    """Static env configuration (the JAX package's EnvConfig: observation
-    v1, Default init). control_mode is "uhc_pd", "torque" or "default"
-    (engine.control_step); power_scale scales the torque mode's action."""
+    """Static env configuration (the JAX package's EnvConfig). control_mode
+    is "uhc_pd", "torque" or "default" (engine.control_step); power_scale
+    scales the torque mode's action; self_obs_v picks observation v1 or v2;
+    state_init is "Default" or "Fall". kp_scale and kd_scale are the
+    reference config's gain scales: the env does not pass them to the
+    physics, as the JAX package's does not (control.stable_pd_torque takes
+    them)."""
 
     episode_length: int = 300
     sim_timestep_inv: int = 450
@@ -49,9 +61,17 @@ class EnvConfig:
     power_scale: float = 10.0
     root_height_obs: bool = True
     enable_early_termination: bool = True
+    self_obs_v: int = 1
+    kp_scale: float = 1.0
+    kd_scale: float = 1.0
     clip_actions: bool = True
     control_mode: str = "uhc_pd"
     contact_bodies: Tuple[str, ...] = ("R_Ankle", "L_Ankle", "R_Toe", "L_Toe")
+    state_init: str = "Default"
+    # > 0: simulate this many Fall states once, at construction, from a
+    # generator seeded with fall_pool_seed, and reset from the pool
+    fall_init_pool: int = 0
+    fall_pool_seed: int = 0
 
     @property
     def dt(self) -> float:
@@ -73,6 +93,7 @@ class EnvState:
     pd_cache: tuple | None     # uhc_pd: (M, C, efc_force) of the last substep
     kin: kinematics.Kin        # FK of phys.qpos
     rng: torch.Generator       # drawn from by task samples and resets
+    proj: Any = None           # free projectile spheres (pos, vel); None here
 
     @property
     def done(self) -> torch.Tensor:
@@ -116,6 +137,10 @@ class HumanoidEnv:
         self._qp = dict(qp_iters=qp_iters, qp_rows=qp_rows, qp_tol=qp_tol, keeps=keeps)
         rows = solver.COMPACT_ROWS if qp_rows is None else qp_rows
         self._qp_rows = min(rows, constraints.NEFC)
+        self._fall_pool = None
+        if self.config.state_init == "Fall" and self.config.fall_init_pool > 0:
+            gen = torch.Generator(device=model.device).manual_seed(self.config.fall_pool_seed)
+            self._fall_pool = self.fall_phys(self._fall_actions(self.config.fall_init_pool, gen))
 
     # ---------------- sizes ----------------
     @property
@@ -128,8 +153,12 @@ class HumanoidEnv:
 
     @property
     def obs_size(self) -> int:
-        return obs_mod.self_obs_size(self.model.nbody, self.config.root_height_obs) \
-            + self.task_obs_size
+        return self.self_obs_size + self.task_obs_size
+
+    @property
+    def self_obs_size(self) -> int:
+        return obs_mod.self_obs_size(self.model.nbody, self.config.self_obs_v,
+                                     self.config.root_height_obs)
 
     @property
     def upright_start(self) -> bool:
@@ -156,37 +185,90 @@ class HumanoidEnv:
                action: torch.Tensor) -> torch.Tensor:
         return torch.zeros_like(phys.qpos[:, 0])
 
+    def task_termination(self, task: Any, terminated: torch.Tensor):
+        """Gate termination on the task state; returns (task, terminated)."""
+        return task, terminated
+
     # ---------------- core ----------------
-    def _init_phys(self, batch: int) -> PhysicsState:
+    def _fall_actions(self, batch: int, generator: torch.Generator) -> torch.Tensor:
+        """(3,B,nu) uniform draws in [-0.5, 0.5] for the Fall init."""
         m = self.model
+        return torch.rand((3, batch, m.nu), generator=generator, dtype=m.dtype,
+                          device=m.device) - 0.5
+
+    def fall_phys(self, actions: torch.Tensor) -> PhysicsState:
+        """The Fall init under explicit actions (3,B,nu): from the drop pose
+        (z = 0.3, root quat (1,0,0,0), joints at 0, at rest), one control
+        step of the env's control mode per action row, the stable-PD cache
+        primed at the drop pose with a cold warm start."""
+        cfg = self.config
+        m = self.model
+        B = actions.shape[1]
+        qpos = torch.zeros((B, m.nq), dtype=m.dtype, device=m.device)
+        qpos[:, 2] = 0.3
+        qpos[:, 3] = 1.0
+        phys = PhysicsState(qpos, torch.zeros((B, m.nv), dtype=m.dtype, device=m.device))
+        cache = self._fresh_cache(phys)
+        for a in actions:
+            phys, _, _, cache = engine.control_step(
+                m, phys, a, control_freq_inv=cfg.control_frequency_inv, cache=cache,
+                reset_ref=self._reset_ref, **self._qp, control_mode=cfg.control_mode,
+                power_scale=cfg.power_scale)
+        return phys
+
+    def _fresh_cache(self, phys: PhysicsState):
+        """uhc_pd: (M, C) at phys with a cold warm start; None otherwise."""
+        if self.config.control_mode != "uhc_pd":
+            return None
+        m = self.model
+        return engine.pd_cache(m, phys) + (
+            torch.zeros((phys.qpos.shape[0], constraints.NEFC), dtype=m.dtype, device=m.device),)
+
+    def _init_phys(self, batch: int, generator: torch.Generator) -> PhysicsState:
+        m = self.model
+        cfg = self.config
+        if cfg.state_init == "Fall":
+            if self._fall_pool is None:
+                return self.fall_phys(self._fall_actions(batch, generator))
+            i = torch.randint(0, cfg.fall_init_pool, (batch,), generator=generator,
+                              device=m.device)
+            return PhysicsState(self._fall_pool.qpos[i], self._fall_pool.qvel[i])
+        if cfg.state_init != "Default":
+            raise NotImplementedError(cfg.state_init)
         qpos = torch.zeros((batch, m.nq), dtype=m.dtype, device=m.device)
         qpos[:, 2] = 0.94
         qpos[:, 3:7] = 0.5
         return PhysicsState(qpos, torch.zeros((batch, m.nv), dtype=m.dtype, device=m.device))
 
     def compute_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin) -> torch.Tensor:
+        cfg = self.config
         body_rot = kinematics.body_quats(self.model, phys.qpos)
-        prop = obs_mod.compute_self_obs_v1(
-            phys.qvel, kin.xpos, body_rot, self.upright_start,
-            self.config.root_height_obs, self.model.humanoid_type)
+        if cfg.self_obs_v == 1:
+            prop = obs_mod.compute_self_obs_v1(
+                phys.qvel, kin.xpos, body_rot, self.upright_start,
+                cfg.root_height_obs, self.model.humanoid_type)
+        elif cfg.self_obs_v == 2:
+            lin, ang = kinematics.body_velocities(self.model, kin, phys.qvel)
+            prop = obs_mod.compute_self_obs_v2(
+                kin.xpos, body_rot, lin, ang, self.upright_start,
+                cfg.root_height_obs, self.model.humanoid_type)
+        else:
+            raise NotImplementedError(f"self_obs_v {cfg.self_obs_v}")
         return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
 
     def reset(self, batch: int, generator: torch.Generator) -> EnvState:
         """Fresh states for `batch` envs: task first, then the humanoid; in
-        uhc_pd mode the stable-PD cache is the fresh (M, C) at the init pose
+        uhc_pd mode the stable-PD cache is the fresh (M, C) at the init state
         (the reference's forward pass after a reset) with a cold constraint
         warm start, in the other modes None."""
         m = self.model
         dev = m.device
         cur_t = torch.zeros(batch, dtype=torch.int32, device=dev)
         task = self.reset_task(generator, self.init_task(batch), cur_t)
-        phys = self._init_phys(batch)
+        phys = self._init_phys(batch, generator)
         kin = kinematics.fk(m, phys.qpos)
         obs = self.compute_obs(task, phys, kin)
-        cache = None
-        if self.config.control_mode == "uhc_pd":
-            cache = engine.pd_cache(m, phys) + (
-                torch.zeros((batch, constraints.NEFC), dtype=m.dtype, device=dev),)
+        cache = self._fresh_cache(phys)
         zeros = torch.zeros(batch, dtype=m.dtype, device=dev)
         false = torch.zeros(batch, dtype=torch.bool, device=dev)
         return EnvState(
@@ -217,6 +299,7 @@ class HumanoidEnv:
         truncated = cur_t > cfg.episode_length
         illegal = lean.geom_floor_contact & ~self._legal_floor_geom
         terminated = illegal.any(1) & cfg.enable_early_termination
+        task, terminated = self.task_termination(task, terminated)
         return EnvState(
             phys=phys, obs=obs, reward=rew, terminated=terminated, truncated=truncated,
             cur_t=cur_t, task=task,

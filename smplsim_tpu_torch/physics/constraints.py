@@ -1,14 +1,15 @@
 """Constraint rows: joint limits, floor contacts and self-contacts, batched.
 
-Port of smplsim_tpu/physics/constraints.py (without projectile spheres) with
-MuJoCo's soft-constraint semantics: impedance d(r), stiffness and damping
+Port of smplsim_tpu/physics/constraints.py with MuJoCo's soft-constraint
+semantics: impedance d(r), stiffness and damping
 from solref, aref = -B v - K d x, R = (1-d)/d * diagApprox. Everything is
 fixed-shape: all candidates are evaluated, the deepest are selected with
 `top_k` (first index wins ties, NaN last), inactive rows are masked.
 
 Row layout of the NEFC rows (for warm starts): [MAX_LIMITS limit rows,
 4 pyramid rows per floor contact, per self-contact, per projectile slot].
-Projectile slots are always inactive in this port.
+The projectile slots hold the deepest contacts of free spheres (`spheres=`)
+with the humanoid's geoms; without spheres they are inactive.
 """
 from __future__ import annotations
 
@@ -21,13 +22,14 @@ import torch
 from smplsim_tpu_torch import transforms as T
 from smplsim_tpu_torch.models.spec import GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, RobotModel
 from smplsim_tpu_torch.physics.algebra import cross
-from smplsim_tpu_torch.physics.collision_pairs import BIG, MAX_SELF, self_contacts, top_k
+from smplsim_tpu_torch.physics.collision_pairs import (BIG, MAX_SELF, _box_sdf, _geom_world,
+                                                       _segment, self_contacts, top_k)
 from smplsim_tpu_torch.physics.dynamics import body_twists
 from smplsim_tpu_torch.physics.kinematics import Kin
 
 MAX_CONTACTS = 24   # floor contacts kept per env (deepest first)
 MAX_LIMITS = 12     # joint-limit rows kept per env
-MAX_PROJC = 4       # projectile contact slots (inactive here)
+MAX_PROJC = 4       # projectile (free sphere) contact slots
 NCON = MAX_CONTACTS + MAX_SELF + MAX_PROJC
 NEFC = MAX_LIMITS + 4 * NCON
 
@@ -48,6 +50,7 @@ class EFC:
     R: torch.Tensor        # (B,NCON,4)
     active: torch.Tensor   # (B,NEFC) bool
     geom_floor_contact: torch.Tensor  # (B,ngeom) bool: a candidate within margin
+    proj_sphere: torch.Tensor  # (B,MAX_PROJC) long: the sphere of each slot, -1 inactive
 
 
 @functools.lru_cache(maxsize=32)
@@ -121,10 +124,76 @@ def _rows(V, W6, body2, body1=None):
     return (W6 * Vb[:, :, None, :]).sum(-1)
 
 
+def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
+    """Contact rows of free spheres against the humanoid's geoms: the
+    MAX_PROJC deepest of the P x G candidates (sphere-capsule by segment
+    distance, sphere-box by the box SDF), pyramid rows with the world
+    (body1 = -1) on the sphere's side, the sphere's velocity subtracted in
+    the row reference and its inverse mass added to R. spheres = (pos
+    (B,P,3), vel (B,P,3), radius (B,P), inverse mass (B,P)).
+    Returns (W6, body2, aref, R, active, sphere) over the slots."""
+    sp_pos, sp_vel, sp_rad, sp_inv = spheres
+    B, P, _ = sp_pos.shape
+    G = model.ngeom
+    gidx = np.arange(G)
+    rad = sp_rad[:, :, None]                                   # (B,P,1)
+    c = sp_pos[:, :, None, :]                                  # (B,P,1,3)
+    seg_p, seg_q, seg_r, _ = _segment(model, kin, gidx)        # (B,G,3), (G,)
+    dseg = (seg_q - seg_p)[:, None]                            # (B,1,G,3)
+    len2 = (dseg * dseg).sum(-1).clamp_min(1e-12)
+    t = torch.clamp(((c - seg_p[:, None]) * dseg).sum(-1) / len2, 0.0, 1.0)
+    delta = seg_p[:, None] + t[..., None] * dseg - c           # (B,P,G,3)
+    gap = torch.sqrt((delta * delta).sum(-1).clamp_min(1e-18))
+    n_seg = delta / gap[..., None]
+    dist_seg = gap - seg_r - rad
+    pos_seg = c + n_seg * (rad + 0.5 * dist_seg)[..., None]
+
+    bpos, bRot, _ = _geom_world(model, kin, gidx)              # (B,G,3), (B,G,3,3)
+    lp = (bRot[:, None].transpose(-1, -2) @ (c - bpos[:, None])[..., None])[..., 0]
+    sdf, n_out = _box_sdf(lp, model.geom_size.to(lp.dtype))
+    dist_box = sdf - rad
+    ploc = lp - (rad + 0.5 * dist_box)[..., None] * n_out
+    pos_box = bpos[:, None] + (bRot[:, None] @ ploc[..., None])[..., 0]
+    n_box = -(bRot[:, None] @ n_out[..., None])[..., 0]
+
+    is_box = torch.as_tensor([t_ == GEOM_BOX for t_ in model.geom_type], device=lp.device)
+    dist = torch.where(is_box, dist_box, dist_seg).reshape(B, P * G)
+    pos = torch.where(is_box[..., None], pos_box, pos_seg).reshape(B, P * G, 3)
+    nrm = torch.where(is_box[..., None], n_box, n_seg).reshape(B, P * G, 3)
+    margin = model.geom_margin.to(lp.dtype).repeat(P)          # (P*G,)
+    cand = dist < margin
+
+    val, idx, _ = top_k(torch.where(cand, -dist, torch.full_like(dist, -BIG)), MAX_PROJC)
+    take3 = lambda x: x.gather(1, idx[..., None].expand(B, MAX_PROJC, 3))
+    k_dist = dist.gather(1, idx)
+    k_active = cand.gather(1, idx) & (val > -BIG / 2)
+    k_sphere, k_geom = idx // G, idx % G
+    k_body = torch.as_tensor(np.asarray(model.geom_body, np.int64), device=lp.device)[k_geom]
+    k_mu = model.geom_friction[:, 0].to(lp.dtype).clamp_min(1.0)[k_geom]
+    k_vel = sp_vel.gather(1, k_sphere[..., None].expand(B, MAX_PROJC, 3))
+    k_inv = sp_inv.gather(1, k_sphere)
+
+    k_norm = take3(nrm)
+    t1, t2 = make_frame(k_norm)
+    W6 = _pyramid(k_norm, t1, t2, k_mu, take3(pos))             # (B,K,4,6)
+    # a moving external side: the row velocity is relative to the sphere's
+    vel = _rows(V, W6, k_body) - (W6[..., 3:] * k_vel[:, :, None, :]).sum(-1)
+    x = k_dist - margin[idx]
+    imp = impedance(solimp, x)
+    aref = -cB * vel - (cK * imp * x)[..., None]
+    diag = ((model.body_invweight0[:, 0].to(lp.dtype)[k_body] + k_inv)
+            * 2.0 * k_mu ** 2 * (1.0 + k_mu ** 2))
+    R = ((1.0 - imp) / imp * diag)[..., None].expand(-1, -1, 4)
+    sphere = torch.where(k_active, k_sphere, torch.full_like(k_sphere, -1))
+    return W6, k_body, aref, R, k_active, sphere
+
+
 def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
-             keeps=None) -> EFC:
+             keeps=None, spheres=None) -> EFC:
     """Assemble the fixed-shape constraint rows (limits first, then contacts).
-    `keeps` passes the self-collision culls through (collision_pairs)."""
+    `keeps` passes the self-collision culls through (collision_pairs);
+    `spheres` = (pos, vel, radius, inverse mass) of free spheres, (B,P,...)
+    each, fills the projectile slots."""
     dtype, dev = qpos.dtype, qpos.device
     B, nv = qvel.shape
     f = lambda x: x.to(dtype)
@@ -221,16 +290,24 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     s_diag = (invw[sc.body1] + invw[sc.body2]) * 2.0 * s_muhat ** 2 * (1.0 + s_muhat ** 2)
     s_R = ((1.0 - s_imp) / s_imp * s_diag)[..., None].expand(-1, -1, 4)
 
-    # ---------------- stack and mask ----------------
-    zP = lambda *s: torch.zeros((B, MAX_PROJC) + s, dtype=dtype, device=dev)
-    aref = torch.cat([c_aref, s_aref, zP(4)], dim=1)
-    R = torch.cat([c_R, s_R, zP(4) + 1.0], dim=1)
-    W6_all = torch.cat([W6, W6_s, zP(4, 6)], dim=1)
+    # ---------------- projectile (free sphere) contacts ----------------
     minus1 = lambda n: torch.full((B, n), -1, dtype=torch.long, device=dev)
+    if spheres is not None:
+        W6_p, p_body, p_aref, p_R, p_active, proj_sphere = _sphere_rows(
+            model, kin, V, spheres, cK, cB, solimp)
+    else:
+        zP = lambda *s: torch.zeros((B, MAX_PROJC) + s, dtype=dtype, device=dev)
+        W6_p, p_aref, p_R = zP(4, 6), zP(4), zP(4) + 1.0
+        p_body, proj_sphere = torch.zeros_like(minus1(MAX_PROJC)), minus1(MAX_PROJC)
+        p_active = torch.zeros((B, MAX_PROJC), dtype=torch.bool, device=dev)
+
+    # ---------------- stack and mask ----------------
+    aref = torch.cat([c_aref, s_aref, p_aref], dim=1)
+    R = torch.cat([c_R, s_R, p_R], dim=1)
+    W6_all = torch.cat([W6, W6_s, W6_p], dim=1)
     body1 = torch.cat([minus1(MAX_CONTACTS), sc.body1, minus1(MAX_PROJC)], dim=1)
-    body2 = torch.cat([c_body, sc.body2, torch.zeros_like(minus1(MAX_PROJC))], dim=1)
-    act4 = torch.cat([c_active, sc.active,
-                      torch.zeros((B, MAX_PROJC), dtype=torch.bool, device=dev)], dim=1)
+    body2 = torch.cat([c_body, sc.body2, p_body], dim=1)
+    act4 = torch.cat([c_active, sc.active, p_active], dim=1)
     act4 = act4[..., None].expand(-1, -1, 4)
     active = torch.cat([l_active, act4.reshape(B, -1)], dim=1)
     # masking with where, not multiplication: unselected narrowphase slots
@@ -247,4 +324,5 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
         R=torch.where(act4, R.clamp_min(1e-10), one),
         active=active,
         geom_floor_contact=geom_floor_contact,
+        proj_sphere=proj_sphere,
     )

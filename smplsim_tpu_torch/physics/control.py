@@ -16,8 +16,14 @@ package, which factors M + dt diag(kd) with the differentiable
 
 Torque (the torque control mode, the reference's SimpleTorqueController):
 tau = clip(action * power_scale * torque_lim, +-torque_lim).
+
+PD/PID (the reference's SimplePID and PIDController): `simple_pid_torque`
+carries a PIDState, `pid_torque` an integral; both clamp their output and
+integral to torque_lim.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -31,36 +37,42 @@ def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tens
     return action * model.pd_action_scale + model.pd_action_offset
 
 
-def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target):
+def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target,
+                     kp_scale: float = 1.0, kd_scale: float = 1.0):
     """The stable-PD solve's right-hand side (B,nv,1), its diagonal shift
-    dt*kd (B,nv) and the hinge position error (B,nu)."""
+    dt*kd*kd_scale (B,nv) and the hinge position error (B,nu)."""
     B, nv = qvel.shape
     dt = model.timestep
     z6 = torch.zeros((B, 6), dtype=qvel.dtype, device=qvel.device)
-    kd = torch.cat([z6[0], model.jkd])
+    kd = torch.cat([z6[0], model.jkd * kd_scale])
     qerr = qpos[:, 7:] + qvel[:, 6:] * dt - target
-    rhs = -C_prev - torch.cat([z6, model.jkp * qerr], 1) - kd * qvel
+    rhs = -C_prev - torch.cat([z6, model.jkp * kp_scale * qerr], 1) - kd * qvel
     return rhs[..., None], (kd * dt).expand(B, nv).contiguous(), qerr
 
 
-def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc):
-    tau = -model.jkp * qerr - model.jkd * (qvel[:, 6:] + qacc[:, 6:] * model.timestep)
+def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc, kp_scale, kd_scale):
+    tau = (-(model.jkp * kp_scale) * qerr
+           - (model.jkd * kd_scale) * (qvel[:, 6:] + qacc[:, 6:] * model.timestep))
     return torch.clamp(tau, -model.torque_lim, model.torque_lim)
 
 
-def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
-    """tau (B,nu) from the stale (M, C) and the current state; the
-    (M + dt diag(kd)) solve is one fused factor+solve (`linalg.chol_solve`)."""
-    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
-    return _stable_pd_tau(model, qerr, qvel, linalg.chol_solve(M_prev, rhs, diag)[..., 0])
+def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
+                     kp_scale: float = 1.0, kd_scale: float = 1.0):
+    """tau (B,nu) from the stale (M, C) and the current state, the gains
+    scaled by kp_scale and kd_scale; the (M + dt diag(kd)) solve is one
+    fused factor+solve (`linalg.chol_solve`)."""
+    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target, kp_scale, kd_scale)
+    qacc = linalg.chol_solve(M_prev, rhs, diag)[..., 0]
+    return _stable_pd_tau(model, qerr, qvel, qacc, kp_scale, kd_scale)
 
 
-def stable_pd_torque_ref(model: RobotModel, M_prev, C_prev, qpos, qvel, target):
+def stable_pd_torque_ref(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
+                         kp_scale: float = 1.0, kd_scale: float = 1.0):
     """tau (B,nu) as `stable_pd_torque`, through one `cho_factor_solve` of
     M_prev + dt diag(kd) (smplsim_tpu/physics/control.py::stable_pd_torque)."""
-    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target)
+    rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target, kp_scale, kd_scale)
     qacc = ad_linalg.cho_factor_solve(M_prev + torch.diag_embed(diag), rhs)[1][..., 0]
-    return _stable_pd_tau(model, qerr, qvel, qacc)
+    return _stable_pd_tau(model, qerr, qvel, qacc, kp_scale, kd_scale)
 
 
 def torque_ctrl(model: RobotModel, action: torch.Tensor,
@@ -69,3 +81,56 @@ def torque_ctrl(model: RobotModel, action: torch.Tensor,
     torque_lim."""
     tau = action * power_scale * model.torque_lim
     return torch.clamp(tau, -model.torque_lim, model.torque_lim)
+
+
+class PIDState(NamedTuple):
+    """SimplePID's carried state, one row per env."""
+
+    proportional: torch.Tensor  # (B,nu) running P term (proportional on measurement)
+    integral: torch.Tensor      # (B,nu)
+    last_input: torch.Tensor    # (B,nu) previous feedback (qpos[7:])
+    last_error: torch.Tensor    # (B,nu)
+    primed: torch.Tensor        # (B,) bool: last_* hold a previous call's values
+
+
+def simple_pid_init(model: RobotModel, batch: int) -> PIDState:
+    """A fresh PIDState for `batch` envs: zeros, not primed."""
+    z = torch.zeros((batch, model.nu), dtype=model.dtype, device=model.device)
+    return PIDState(z, z, z, z, torch.zeros(batch, dtype=torch.bool, device=model.device))
+
+
+def simple_pid_torque(model: RobotModel, state: PIDState, qpos, action, jki=None,
+                      proportional_on_measurement: bool = False,
+                      differential_on_measurement: bool = False):
+    """SimplePID law: returns (tau (B,nu), state'). On an env's first call
+    (not primed) the input and error differences are zero; the output and
+    the integral are clamped to torque_lim (anti-windup)."""
+    dt = model.timestep
+    lim = model.torque_lim
+    kp, kd = model.jkp, model.jkd
+    ki = torch.zeros_like(kp) if jki is None else jki
+    feedback = qpos[:, 7:]
+    error = pd_target_from_action(model, action) - feedback
+    primed = state.primed[:, None]
+    zero = torch.zeros((), dtype=qpos.dtype, device=qpos.device)
+    d_input = torch.where(primed, feedback - state.last_input, zero)
+    d_error = torch.where(primed, error - state.last_error, zero)
+    if proportional_on_measurement:
+        proportional = state.proportional - kp * d_input
+    else:
+        proportional = kp * error
+    integral = torch.clamp(state.integral + ki * error * dt, -lim, lim)
+    derivative = -kd * d_input / dt if differential_on_measurement else kd * d_error / dt
+    tau = torch.clamp(proportional + integral + derivative, -lim, lim)
+    return tau, PIDState(proportional, integral, feedback, error,
+                         torch.ones_like(state.primed))
+
+
+def pid_torque(model: RobotModel, qpos, qvel, target, integral, jki=None):
+    """PIDController law: returns (tau (B,nu), integral')."""
+    lim = model.torque_lim
+    err = qpos[:, 7:] - target
+    integral = torch.clamp(integral + err * model.timestep, -lim, lim)
+    ki = torch.zeros_like(model.jkp) if jki is None else jki
+    tau = -model.jkp * err - model.jkd * qvel[:, 6:] - ki * integral
+    return torch.clamp(tau, -lim, lim), integral

@@ -76,6 +76,19 @@ def body_twists(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor
     return _mask(model, "body_dof", kin.S) @ (kin.S * qvel[..., None])
 
 
+def external_forces(model: RobotModel, kin: Kin, force: torch.Tensor,
+                    torque: torch.Tensor | None = None) -> torch.Tensor:
+    """(B,nv) generalized forces of per-body external wrenches (MuJoCo's
+    xfrc_applied): force (B,J,3) in the world frame at each body's COM,
+    torque (B,J,3) optional. Each wrench about the world origin,
+    [c x f + torque; f], is projected onto the dofs of its ancestors through
+    the subtree mask that bias_forces uses."""
+    tau = torch.zeros_like(force) if torque is None else torque
+    w = torch.cat([algebra.cross(kin.com, force) + tau, force], dim=-1)   # (B,J,6)
+    fC = _mask(model, "dof_subtree_body", kin.S) @ w                       # (B,nv,6)
+    return (kin.S * fC).sum(-1)
+
+
 def passive_forces(model: RobotModel, qvel: torch.Tensor) -> torch.Tensor:
     """(B,nv) passive joint forces (damping; SMPL models have no springs)."""
     return -model.dof_damping * qvel

@@ -24,7 +24,8 @@ of the loop (substep.control_loop with reference=True; the JAX package's
 engine.py::_uhc_core_ref, which its custom_jvp differentiates) instead of
 the batched spine: stable-PD and the smooth solve through
 `cho_factor_solve`, the Gram-form contact solve, and the derivative rules
-of physics/linalg.py and ops/qp.py. The spine's kernels raise on a
+of physics/linalg.py and ops/qp.py, with ext_force and the projectiles as in
+the spine. The spine's kernels raise on a
 tangent. The torque and default modes run the per-env
 composition already. Reverse mode is not implemented.
 """
@@ -112,14 +113,22 @@ def reset_reference(model: RobotModel):
 def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
                  control_freq_inv: int = 15, cache=None, reset_ref=None,
                  qp_iters=None, qp_rows=None, qp_tol=None, keeps=None,
-                 control_mode: str = "uhc_pd", power_scale: float = 1.0):
+                 control_mode: str = "uhc_pd", power_scale: float = 1.0,
+                 ext_force=None, proj=None):
     """One control step of control_freq_inv substeps for a batch.
 
     action (B,nu) in [-1,1] ("default" mode: joint torques). qp_iters /
     qp_rows / qp_tol / keeps override SMPLSIM_QP_ITERS / SMPLSIM_QP_ROWS /
     SMPLSIM_QP_TOL / SMPLSIM_*_KEEP. Returns (state', LeanInfo, power (B,),
     cache'): cache' = (M, C, efc_force) in uhc_pd mode, None in the others
-    (which ignore `cache`)."""
+    (which ignore `cache`).
+
+    The uhc_pd mode takes two perturbation hooks (substep.control_loop):
+    ext_force (B,J,3), world forces at the body COMs during every substep,
+    and proj = (pos (B,P,3), vel (B,P,3), radius (B,P), inverse mass
+    (B,P)), free spheres that collide with the humanoid; with proj the step
+    returns a fifth entry, the spheres' (pos, vel). The torque and default
+    modes ignore both, as the JAX package's do."""
     if reset_ref is None:
         reset_ref = reset_reference(model)
     if control_mode in ("torque", "default"):
@@ -138,12 +147,16 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
         M0, C0, f_w0 = cache
     K = None if qp_rows is None else min(qp_rows, constraints.NEFC)
     target = pd_target_from_action(model, action)
+    hooks = [t for t in (ext_force, *(proj or ())) if t is not None]
     tangent = any(forward_ad.unpack_dual(t).tangent is not None
-                  for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref))
-    q, v, M, C, f_w, power, nact, stall, gfc = control_loop(
+                  for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref, *hooks))
+    out = control_loop(
         model, state.qpos, state.qvel, M0, C0, f_w0, target, reset_ref,
-        control_freq_inv, qp_iters, K, qp_tol, keeps, reference=tangent)
-    return (PhysicsState(q, v), LeanInfo(gfc, nact, stall), power, (M, C, f_w))
+        control_freq_inv, qp_iters, K, qp_tol, keeps, reference=tangent,
+        ext_force=ext_force, proj=proj)
+    q, v, M, C, f_w, power, nact, stall, gfc = out[:9]
+    ret = (PhysicsState(q, v), LeanInfo(gfc, nact, stall), power, (M, C, f_w))
+    return ret if proj is None else ret + out[9:]
 
 
 def _direct_loop(model, state, tau, control_freq_inv, reset_ref, knobs):

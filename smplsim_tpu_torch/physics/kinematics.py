@@ -92,3 +92,14 @@ def body_quats(model: RobotModel, qpos: torch.Tensor) -> torch.Tensor:
     for b in range(1, J):
         out.append(T.quat_mul(out[model.parents[b]], local[:, b]))
     return torch.stack(out, dim=1)
+
+
+def body_velocities(model: RobotModel, kin: Kin, qvel: torch.Tensor):
+    """World linear velocity of each body frame origin and angular velocity,
+    (B,J,3) each (MuJoCo's framelinvel / frameangvel sensors on xbody)."""
+    # dynamics imports this module for Kin, so import it here
+    from smplsim_tpu_torch.physics.dynamics import body_twists
+
+    V = body_twists(model, kin, qvel)
+    w, v0 = V[..., :3], V[..., 3:]
+    return v0 + cross(w, kin.xpos), w

@@ -124,6 +124,22 @@ def test_control_step_runs_without_importing_jax():
         "xs, us, J = ilqr_plan(dyn, lambda x, u, t: (x[:, m.nq] - 1.0) ** 2, "
         "lambda x: (x[:, m.nq] - 1.0) ** 2, x0[0], u0, ILQRConfig(iterations=1))\n"
         "assert torch.isfinite(J) and xs.shape == (2, 151)\n"
+        # the getup and reach envs (Fall init, observation v2) and both
+        # perturbation hooks
+        "from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidReach, "
+        "ReachConfig\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "z = torch.zeros(1, m.nu, dtype=torch.float64)\n"
+        "env = HumanoidGetup(m, GetupConfig(control_frequency_inv=1))\n"
+        "s = env.step_autoreset(env.reset(1, g), z)\n"
+        "env = HumanoidReach(m, ReachConfig(self_obs_v=2, control_frequency_inv=1))\n"
+        "s2 = env.step(env.reset(1, g), z)\n"
+        "assert torch.isfinite(s.obs).all() and torch.isfinite(s2.obs).all()\n"
+        "pp = torch.tensor([[[0.3, -0.2, 0.9]]], dtype=torch.float64)\n"
+        "one = torch.ones(1, 1, dtype=torch.float64)\n"
+        "out = engine.control_step(m, st, z, control_freq_inv=1, ext_force=torch.ones(1, "
+        "m.nbody, 3, dtype=torch.float64), proj=(pp, -pp, 0.1 * one, one))\n"
+        "assert len(out) == 5 and torch.isfinite(out[4][0]).all()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'smplsim_tpu')]\n"
         "assert not bad, bad\n"

@@ -3,13 +3,16 @@ spends its time on the GPU.
 
     python3 tools/profile_torch_step.py [--batch 4096] [--steps 2]
                                         [--control-mode uhc_pd|torque]
+                                        [--task speed|getup]
     python3 tools/profile_torch_step.py --jacobian
 
 Default: runs HumanoidSpeed at the main-path operating point (float32, 15
 substeps, SMPLSIM_QP_ITERS=16, SMPLSIM_QP_TOL=1e-4, SMPLSIM_QP_ROWS=32) in
 the given control mode (uniform random actions in [-1, 1]), warms up three
 control steps, times `--steps` step_autoreset calls, then records as many
-again with torch.profiler.
+again with torch.profiler. `--task getup` runs HumanoidGetup instead, with
+its per-reset Fall init: each step_autoreset is 4 control steps (the 3 of
+the Fall, computed for every env, and the step).
 
 --jacobian: the derivative path at chip_smoke.py phase 9's operating point,
 in float32 and then float64: one Jacobian evaluation (control.jacobians,
@@ -111,11 +114,14 @@ def measure(run, reps: int, unit: str) -> dict:
 
 
 def control_step_profile(args, card, dev) -> dict:
-    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed, SpeedConfig
     from smplsim_tpu_torch.models import registry
 
     model = registry.default_humanoid(torch.float32)
-    env = HumanoidSpeed(model, SpeedConfig(control_mode=args.control_mode), **QP)
+    if args.task == "getup":
+        env = HumanoidGetup(model, GetupConfig(control_mode=args.control_mode), **QP)
+    else:
+        env = HumanoidSpeed(model, SpeedConfig(control_mode=args.control_mode), **QP)
     gen = torch.Generator(device=dev).manual_seed(0)
     act = lambda: torch.rand(args.batch, model.nu, generator=gen, device=dev) * 2 - 1
     box = {"state": env.reset(args.batch, gen)}
@@ -124,10 +130,10 @@ def control_step_profile(args, card, dev) -> dict:
         box["state"] = env.step_autoreset(box["state"], act())
     for _ in range(3):
         step()
-    print(f"card: {card}; {args.control_mode} control, batch {args.batch}, {args.steps} "
-          "control steps profiled")
-    out = measure(step, args.steps, "control step")
-    return dict(control_mode=args.control_mode, batch=args.batch, **out)
+    print(f"card: {card}; {args.task} task, {args.control_mode} control, batch {args.batch}, "
+          f"{args.steps} step_autoreset calls profiled")
+    out = measure(step, args.steps, "step_autoreset" if args.task == "getup" else "control step")
+    return dict(task=args.task, control_mode=args.control_mode, batch=args.batch, **out)
 
 
 def jacobian_profile(dtype, card, dev) -> dict:
@@ -165,6 +171,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--control-mode", default="uhc_pd", choices=("uhc_pd", "torque"))
+    ap.add_argument("--task", default="speed", choices=("speed", "getup"),
+                    help="HumanoidSpeed, or HumanoidGetup with its per-reset Fall init")
     ap.add_argument("--jacobian", action="store_true",
                     help="profile one warm Jacobian evaluation in float32 and float64")
     args = ap.parse_args()
