@@ -130,10 +130,36 @@ Phases (any failure exits non-zero):
      half-scale random actions (the Fall states are chaotic over longer
      windows: on the CPU two float32 runs 1e-6 apart part by 0.04 after 2
      control steps of 15 substeps, by 6e-5 at most after 2 of 3): qpos and
-     the ball positions within 5e-3, at least 3/4 of the balls met.
+     the ball positions within 5e-3, at least 3/4 of the balls met;
+ 18. the PPO trainer at full width: AgentHumanoid(RunConfig(num_epochs=2,
+     save_frequency=1)) with PPOConfig()'s defaults (1024 envs, horizon 32,
+     both nets (2048, 1536, 1024, 1024, 512, 512) silu, 10 epochs x 4
+     minibatches) on HumanoidSpeed at the package's default QP (K = 64
+     compact rows, 40 iterations, tol 1e-6); optimize_policy(2) launches
+     exactly 960 chol_solve + 480 newton_qp per PPO iteration and no C, D
+     or E; every weight and bias changed and finite; log.txt's nine keys;
+     each epoch's T_step, env-steps/s, rollout and update seconds and
+     solver health printed; the epoch-2 checkpoint loads into a new agent
+     bit for bit, and one more epoch from it reproduces the trainer's bit
+     for bit; run_policy(4 episodes, 8 steps) at 30 + 15 launches per step;
+     Kernels A and B against their plain versions, as in phase 2, on a
+     real substep of the trainer's env states after the third epoch under
+     the policy's mean action, at the trainer's QP: A at m = 1 + diag and
+     m = 65, B at K = 64 with 40 iterations and tol 1e-6 (the shapes no
+     other phase holds on real systems), with their times and bounds;
+     then PPO.update on the card and on the CPU in float64 (widths (64, 64),
+     one numpy-made trajectory of 8 x 64 and the same permutations):
+     parameters, Adam moments and running norm within 1e-9 relative;
+ 19. the CEM planner: CEMPlanner(HumanoidGetup(model, GetupConfig()),
+     CEMConfig()) (128 samples, horizon 8, 3 iterations) from a Fall reset
+     of one env: one plan launches 30 x 24 chol_solve + 15 x 24 newton_qp
+     and no C, D or E; its best cost is at most the zero-action rollout's;
+     the env's generator is as it was; seconds per plan; then
+     receding_horizon(state, 2).
 
-Phases 3, 6, 9, 14, 16 and 17's projectile run each set every launch
-count to 0 just before and read them just after. The third-to-last line is the `kernels` JSON object, the
+Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval and
+19's plan each set every launch count to 0 just before and read them just
+after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -145,8 +171,11 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch.autograd import forward_ad
 
@@ -600,11 +629,13 @@ def edge_cases_e(linalg, dev) -> None:
     print("  ok: 7.0 and NaN above the diagonal change no bit of E's factor", flush=True)
 
 
-def substep_inputs(model, state, act) -> dict:
+def substep_inputs(model, state, act, qp_rows: int = QP["qp_rows"]) -> dict:
     """The inputs of Kernels A and B at one real substep of an env state:
     stable-PD's (M_prev + dt diag(kd)) system with its right-hand side,
-    the smooth + Delassus system M [qfrc | J^T] and the QP of the compact
-    rows, under the PD target of the actions `act`."""
+    the smooth + Delassus system M [qfrc | J^T] and the QP of the qp_rows
+    compact rows, under the PD target of the actions `act`. The chol
+    entries are named by their right-hand-side columns: "m=1,diag" and
+    "m={1 + K}"."""
     from smplsim_tpu_torch.ops import linalg
     from smplsim_tpu_torch.physics import constraints, control, dynamics, kinematics, solver
 
@@ -619,7 +650,7 @@ def substep_inputs(model, state, act) -> dict:
     z6 = torch.zeros((q.shape[0], 6), device=q.device)
     qfrc = torch.cat([z6, model.gear * tau], 1) - model.dof_damping * v - C
     efc = constraints.make_efc(model, kin, q, v)
-    K = min(QP["qp_rows"], constraints.NEFC)
+    K = min(qp_rows, constraints.NEFC)
     rows = solver.select_rows(model, kin.S, efc, f_w, K)
     rhs33 = solver.smooth_rhs(qfrc, rows)
     A_qp, b_qp = solver.delassus(rows, linalg.chol_solve_plain(M, rhs33))
@@ -629,20 +660,23 @@ def substep_inputs(model, state, act) -> dict:
           f"mean {nact.float().mean().item():.2f} max {int(nact.max())}, systems with all "
           f"{K} compact rows active {(rows.actf.sum(1) == K).float().mean().item():.4f}",
           flush=True)
-    return dict(chol={"m=1,diag": (M_prev, rhs1, diag1), "m=33": (M, rhs33, None)},
+    return dict(chol={"m=1,diag": (M_prev, rhs1, diag1),
+                      f"m={rhs33.shape[-1]}": (M, rhs33, None)},
                 qp=(A_qp, b_qp, rows.actf, rows.f0),
                 full_rows=(rows.actf.sum(1) == K).float().mean().item())
 
 
-def hold_a_b(tag: str, inputs: dict) -> dict:
-    """Kernels A (chol_solve at m=1 + diag and m=33) and B (newton_qp)
+def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
+             tol32: float = QP["qp_tol"]) -> dict:
+    """Kernels A (chol_solve at m=1 + diag and m = 1 + K) and B (newton_qp
+    with `iters` iterations, float32 tolerance tol32, float64 1e-12)
     against their plain versions on `inputs` (substep_inputs): float64
     elementwise, float32 by residual, objective and KKT; times of kernel,
     plain version, library call and the previous forms (A's column kernel
     and both solve forms through their raw entry points, B's block form),
     failing unless the wrappers' kernels are the faster. Returns the
-    report entries "m=1,diag", "m=33" and "qp"; `tag` prefixes the
-    printed names."""
+    report entries of inputs["chol"] and "qp"; `tag` prefixes the printed
+    names."""
     from smplsim_tpu_torch.ops import _build, linalg, qp
 
     report = {}
@@ -707,8 +741,8 @@ def hold_a_b(tag: str, inputs: dict) -> dict:
     for dt in (torch.float64, torch.float32):
         A, b = A_qp.to(dt).contiguous(), b_qp.to(dt).contiguous()
         a, f0 = act_qp.to(dt).contiguous(), f0_qp.to(dt).contiguous()
-        tol = 1e-12 if dt == torch.float64 else QP["qp_tol"]
-        it = QP["qp_iters"]
+        tol = 1e-12 if dt == torch.float64 else tol32
+        it = iters
         fk = qp.newton_qp(A, b, a, f0, it, tol)
         torch.cuda.synchronize()
         fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
@@ -759,11 +793,185 @@ def hold_a_b(tag: str, inputs: dict) -> dict:
     return report
 
 
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(a, b))
+
+
+def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> dict:
+    """Phases 18 and 19: the PPO trainer (AgentHumanoid with run_cfg), the
+    update card vs CPU in float64 (ucfg), and the CEM planner (ccfg) on
+    HumanoidGetup; every launch count set to 0 just before each counted
+    run and read just after. Returns the launch counts and times."""
+    from smplsim_tpu_torch.agents import AgentHumanoid
+    from smplsim_tpu_torch.control import CEMPlanner
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed
+    from smplsim_tpu_torch.learning.nets import gaussian_log_prob
+    from smplsim_tpu_torch.learning.ppo import PPO, state_tensors
+    from smplsim_tpu_torch.learning.running_norm import normalize
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.ops import qp
+
+    # ------------------------------------------------ 18. the PPO trainer
+    print("phase 18: PPO trainer at full width (PPOConfig(), the default QP)", flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    run_cfg = dataclasses.replace(run_cfg, output_dir=tmp.name)
+    pcfg = run_cfg.learning
+    cfi = run_cfg.env.control_frequency_inv
+    sync = lambda: torch.cuda.synchronize() if dev.type == "cuda" else None
+    agent = AgentHumanoid(run_cfg, device=dev)
+    print(f"  {pcfg.num_envs} envs x horizon {pcfg.horizon}, nets {pcfg.policy_widths} "
+          f"{pcfg.activation}, {pcfg.opt_num_epochs} epochs x {pcfg.num_minibatches} "
+          f"minibatches; compact rows K = {agent.env._qp_rows}", flush=True)
+    agent.state = agent.ppo.init(run_cfg.seed)
+    trained = lambda st: [(f"{k} {n}", p) for k, net in (("policy", st.policy), ("value", st.value))
+                          for n, p in net.named_parameters() if n != "log_std"]
+    w_init = [(n, p.detach().clone()) for n, p in trained(agent.state)]
+    for fn in counted:
+        fn.launches = 0
+    ts = agent.optimize_policy(2)
+    ppo_l = [fn.launches for fn in counted]
+    per_iter = pcfg.horizon
+    check(ppo_l[0] == 2 * 2 * cfi * per_iter and ppo_l[3] == 2 * cfi * per_iter
+          and ppo_l[1] == ppo_l[2] == ppo_l[4] == 0,
+          f"2 PPO iterations launched chol_solve {ppo_l[0]} = 2 x {2 * cfi * per_iter}, "
+          f"newton_qp {ppo_l[3]} = 2 x {cfi * per_iter}, and no C, D or E ({ppo_l[1]}, "
+          f"{ppo_l[2]}, {ppo_l[4]})")
+    w_after = trained(ts)
+    check(all(bool(torch.isfinite(p).all()) for _, p in w_after), "parameters finite")
+    unchanged = [n for (n, a), (_, b) in zip(w_init, w_after) if torch.equal(a, b)]
+    check(not unchanged, f"every weight and bias tensor of both nets changed ({len(w_after)}; "
+                         f"unchanged: {unchanged})")
+    log_lines = [json.loads(x) for x in open(os.path.join(agent.out_dir, "log.txt"))]
+    keys = {"epoch", "T_step", "steps_per_sec", "reward_mean", "episode_done_frac", "value_mean",
+            "efc_overflow_frac", "qp_stalled_frac", "nactive_max"}
+    check([r["epoch"] for r in log_lines] == [1, 2] and all(set(r) == keys for r in log_lines)
+          and all(math.isfinite(v) for r in log_lines for v in r.values()),
+          "log.txt: two lines of the nine keys, finite")
+    for r, s in zip(log_lines, agent.epoch_seconds):
+        print(f"  epoch {r['epoch']}: T_step {r['T_step']} s, {r['steps_per_sec']} env-steps/s; "
+              f"rollout {s['rollout']:.3f} s, update {s['update']:.3f} s; reward_mean "
+              f"{r['reward_mean']:.5f}, overflow {r['efc_overflow_frac']:.5f}, stalled "
+              f"{r['qp_stalled_frac']:.5f}, nactive_max {r['nactive_max']:.0f}", flush=True)
+    ppo_sec = agent.epoch_seconds[-1]
+    # a new agent loads the last checkpoint bit for bit; one more epoch from
+    # it and from the trainer that saved it agree bit for bit
+    agent2 = AgentHumanoid(dataclasses.replace(run_cfg, epoch=-1), device=dev)
+    ts2 = agent2.load_checkpoint(-1)
+    check(ts2.epoch == 2 and same_bits(state_tensors(ts), state_tensors(ts2)),
+          "the epoch-2 checkpoint loads into a new agent bit for bit")
+    agent2.state = ts2
+    ts3b = agent2.optimize_policy(1)
+    ts3 = agent.optimize_policy(1)
+    check(ts3b.epoch == 3 and same_bits(state_tensors(ts3), state_tensors(ts3b)),
+          "one more epoch from the loaded checkpoint reproduces the trainer's bit for bit")
+    for fn in counted:
+        fn.launches = 0
+    ev = agent.run_policy(n_episodes=4, horizon=8)
+    eval_l = [fn.launches for fn in counted]
+    check(math.isfinite(ev["eval_return_mean"]) and eval_l[0] == 8 * 2 * cfi
+          and eval_l[3] == 8 * cfi and eval_l[1] == eval_l[2] == eval_l[4] == 0,
+          f"run_policy(4 episodes, 8 steps): return {ev['eval_return_mean']:.4f} finite, "
+          f"chol_solve {eval_l[0]} and newton_qp {eval_l[3]} launches (30 + 15 per step)")
+    # Kernels A and B against their plain versions on the trainer's own
+    # systems: a real substep of its env states after the third epoch's
+    # rollout, under the policy's mean action, at the trainer's QP
+    est = agent.state.env_states
+    with torch.no_grad():
+        mu, _ = agent.state.policy(normalize(agent.state.obs_norm, est.obs, pcfg.obs_clip))
+    t_inputs = substep_inputs(agent.model, est, mu.clamp(-1.0, 1.0), agent.env._qp_rows)
+    t_report = hold_a_b("trainer ", t_inputs, qp.NEWTON_ITERS, qp.tol_for(torch.float32))
+    t_report["full_rows"] = t_inputs["full_rows"]
+    tmp.cleanup()
+    # the update, card vs CPU in float64, on one numpy-made trajectory
+    sides = []
+    for d in (dev, torch.device("cpu")):
+        m64 = registry.default_humanoid(torch.float64, device=d)
+        sides.append((PPO(HumanoidSpeed(m64), ucfg), d))
+    nobs_dim = sides[0][0].env.obs_size
+    rs = np.random.RandomState(0)
+    n_u = ucfg.horizon * ucfg.num_envs
+    shp = (ucfg.horizon, ucfg.num_envs)
+    done_np = rs.rand(*shp) < 0.1
+    obs_np = rs.randn(*shp, nobs_dim)
+    init_states = [ppo_.init(0) for ppo_, _ in sides]      # the same nets on both
+    with torch.no_grad():
+        # actions about the initial policy's mean, logp its own plus noise:
+        # some ratios leave the clip range
+        mu, ls = init_states[1].policy(torch.as_tensor(obs_np))
+        act = mu + ls.exp() * torch.as_tensor(rs.randn(*shp, model.nu))
+        logp = gaussian_log_prob(mu, ls, act).numpy() + 0.3 * rs.randn(*shp)
+    traj_np = dict(obs=obs_np, action=act.numpy(), logp=logp, reward=rs.rand(*shp),
+                   done=done_np, terminated=done_np & (rs.rand(*shp) < 0.5),
+                   nactive=rs.randint(0, 64, shp), overflow=rs.rand(*shp) < 0.2,
+                   stalled=rs.rand(*shp) < 0.1)
+    last_np = rs.randn(ucfg.num_envs, nobs_dim)
+    perms_np = np.stack([rs.permutation(n_u) for _ in range(ucfg.opt_num_epochs)])
+    results = []
+    for (ppo_, d), uts in zip(sides, init_states):
+        tr = {k: torch.as_tensor(v, device=d) for k, v in traj_np.items()}
+        t0 = time.time()
+        uts, umet = ppo_.update(uts, SimpleNamespace(obs=torch.as_tensor(last_np, device=d)),
+                                tr, perms=torch.as_tensor(perms_np, device=d))
+        sync()
+        results.append((state_tensors(uts, env=False), time.time() - t0))
+    upd_err = max(((a.cpu().double() - b.double()).abs() / (1.0 + b.double().abs())).max().item()
+                  for a, b in zip(results[0][0], results[1][0]) if a.is_floating_point())
+    check(upd_err <= 1e-9, f"PPO update card vs CPU in float64 (widths {ucfg.policy_widths}, "
+                           f"{ucfg.opt_num_epochs} x {ucfg.num_minibatches} minibatch steps): "
+                           f"parameters, Adam moments and running norm within {upd_err:.3e} "
+                           f"<= 1e-9 relative")
+
+    # ------------------------------------------------------ 19. CEM planning
+    print("phase 19: CEM planner on HumanoidGetup (CEMConfig(), the default QP)", flush=True)
+    cenv = HumanoidGetup(model, GetupConfig(control_frequency_inv=cfi))
+    planner = CEMPlanner(cenv, ccfg)
+    env_gen = torch.Generator(device=dev).manual_seed(3)
+    sample_gen = torch.Generator(device=dev).manual_seed(4)
+    cstate = cenv.reset(1, env_gen)
+    gen_before = env_gen.get_state().clone()
+    for fn in counted:
+        fn.launches = 0
+    sync()
+    t0 = time.time()
+    a0, cmean, best = planner.plan(cstate, generator=sample_gen)
+    sync()
+    plan_s = time.time() - t0
+    cem_l = [fn.launches for fn in counted]
+    n_cs = ccfg.iterations * ccfg.horizon
+    check(cem_l[0] == 2 * cfi * n_cs and cem_l[3] == cfi * n_cs
+          and cem_l[1] == cem_l[2] == cem_l[4] == 0,
+          f"one plan launched chol_solve {cem_l[0]} = 30 x {n_cs}, newton_qp {cem_l[3]} = "
+          f"15 x {n_cs} (batch {ccfg.num_samples}), and no C, D or E")
+    zero_cost = planner._rollout_cost(cstate, torch.zeros(1, ccfg.horizon, cenv.action_size,
+                                                          device=dev))
+    check(bool(torch.isfinite(cmean).all()) and float(best) <= float(zero_cost[0]) + 1e-6,
+          f"best cost {float(best):.5f} <= the zero-action rollout's {float(zero_cost[0]):.5f}")
+    check(torch.equal(env_gen.get_state(), gen_before), "the plan left the env's generator as "
+                                                        "it was")
+    print(f"  {plan_s:.3f} s per plan ({ccfg.num_samples} samples x horizon {ccfg.horizon} x "
+          f"{ccfg.iterations} iterations, from a Fall reset) on {card}", flush=True)
+    t0 = time.time()
+    cfinal, crews, ccosts = planner.receding_horizon(cstate, 2, sample_gen)
+    sync()
+    rh_s = time.time() - t0
+    check(bool(torch.isfinite(crews).all() & torch.isfinite(ccosts).all())
+          and int(cfinal.cur_t[0]) == int(cstate.cur_t[0]) + 2,
+          f"receding_horizon(2): rewards {crews.tolist()}, costs {ccosts.tolist()} finite, "
+          f"{rh_s:.3f} s")
+
+    return dict(ppo_l=ppo_l, eval_l=eval_l, cem_l=cem_l, ppo_sec=ppo_sec, plan_s=plan_s,
+                report=t_report)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from smplsim_tpu_torch.control import ILQRConfig, ilqr_plan, jacobians
+    from smplsim_tpu_torch.agents import RunConfig
+    from smplsim_tpu_torch.control import CEMConfig, ILQRConfig, ilqr_plan, jacobians
+    from smplsim_tpu_torch.learning.ppo import PPOConfig
     from smplsim_tpu_torch.envs import (GetupConfig, HumanoidGetup, HumanoidReach,
                                         HumanoidSpeed, ReachConfig, SpeedConfig)
     from smplsim_tpu_torch.envs import obs as obs_mod
@@ -1426,6 +1634,15 @@ def main() -> None:
     check(met >= 0.75, f"the balls met their humanoids in {met:.3f} >= 0.75 of the envs "
                        "(x-velocity moved by more than 1 m/s)")
 
+    tr = trainer_and_planner(model, dev, counted, card, RunConfig(num_epochs=2, save_frequency=1),
+                             PPOConfig(num_envs=64, horizon=8, policy_widths=(64, 64),
+                                       value_widths=(64, 64)), CEMConfig())
+    ppo_l, eval_l, cem_l, ppo_sec, plan_s = (tr[k] for k in ("ppo_l", "eval_l", "cem_l",
+                                                              "ppo_sec", "plan_s"))
+    pcfg = RunConfig().learning
+    report["trainer"] = tr["report"]
+    trainer_chol = [k for k in report["trainer"] if k.startswith("m=")]
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
@@ -1434,17 +1651,23 @@ def main() -> None:
     names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
     ball = dict(zip(names, l_hit))
 
+    ppo_c, eval_c, cem_c = (dict(zip(names, x)) for x in (ppo_l, eval_l, cem_l))
+
     def paths(uhc, torque, jac, name):
         """Launch counts of kernel `name` on every counted run of the main
-        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run."""
+        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, and
+        18's two PPO iterations and eval rollout and 19's plan."""
         new = sum(r.get(name, 0) for r in runs4.values()) + ball[name]
         return dict(
-            launches=uhc + torque + jac + new,
+            launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name],
             launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
-                                       "projectile": ball[name] / 25},
+                                       "projectile": ball[name] / 25,
+                                       "eval": eval_c[name] / 8},
             launches_per_jacobian=jac,
             launches_per_step_autoreset={k: r["per_step"].get(name, 0)
-                                         for k, r in runs4.items()})
+                                         for k, r in runs4.items()},
+            launches_per_ppo_iteration=ppo_c[name] / 2,
+            launches_per_cem_plan=cem_c[name])
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:334",
@@ -1457,12 +1680,15 @@ def main() -> None:
                 for k in ("max_abs_err", "max_rel_err")},
              bound_by=report["m=33"]["bound_by"],
              shapes={**{k: report[k] for k in ("m=1,diag", "m=33")},
-                     **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")}}),
+                     **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")},
+                     **{f"trainer {k}": report["trainer"][k] for k in trainer_chol}}),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
              replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
              **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"],
                                      "getup": {**report["getup"]["qp"],
-                                               "full_rows": report["getup"]["full_rows"]}}),
+                                               "full_rows": report["getup"]["full_rows"]},
+                                     "trainer": {**report["trainer"]["qp"],
+                                                 "full_rows": report["trainer"]["full_rows"]}}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:104",
@@ -1485,7 +1711,10 @@ def main() -> None:
     ]
     print(f"jacobian: {N_POINTS * reps} systems in {t_jac:.3f} s; ilqr: {s_iter:.3f} s per "
           f"iteration; env-steps/s: speed {rate:.1f}, getup {g_run['rate']:.1f} (pool "
-          f"{p_run['rate']:.1f}), reach {r_run['rate']:.1f}", flush=True)
+          f"{p_run['rate']:.1f}), reach {r_run['rate']:.1f}; PPO iteration (epoch 2): rollout "
+          f"{ppo_sec['rollout']:.3f} s + update {ppo_sec['update']:.3f} s, "
+          f"{pcfg.num_envs * pcfg.horizon / (ppo_sec['rollout'] + ppo_sec['update']):.1f} "
+          f"training env-steps/s; CEM: {plan_s:.3f} s per plan", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -116,6 +116,30 @@ def select(mask: torch.Tensor, a, b):
     return b
 
 
+def map_state(fn, tree):
+    """Apply fn to every tensor and generator leaf of an EnvState tree
+    (dataclasses, tuples, lists, dicts), in field order; other leaves (None)
+    are kept."""
+    if isinstance(tree, (torch.Tensor, torch.Generator)):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: map_state(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_state(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: map_state(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def clone_generator(gen: torch.Generator) -> torch.Generator:
+    """A generator on gen's device at gen's state: draws from it leave gen
+    where it was."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
 class HumanoidEnv:
     """Plain humanoid env (no task): reward 0, truncate on episode length.
 

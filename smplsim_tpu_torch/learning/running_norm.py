@@ -1,0 +1,45 @@
+"""Running input normalization (port of smplsim_tpu/learning/running_norm.py).
+
+The statistics are an explicit value, (n, mean, var) tensors on the device,
+merged functionally from rollout batches with Chan's parallel update; the
+`maximum(n, 1)` guards keep an empty merge finite.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class RunningNorm:
+    n: torch.Tensor       # () count
+    mean: torch.Tensor    # (dim,)
+    var: torch.Tensor     # (dim,) population variance
+
+
+def norm_init(dim: int, dtype: torch.dtype = torch.float32,
+              device: str | torch.device = "cuda") -> RunningNorm:
+    return RunningNorm(
+        n=torch.zeros((), dtype=dtype, device=device),
+        mean=torch.zeros(dim, dtype=dtype, device=device),
+        var=torch.ones(dim, dtype=dtype, device=device),
+    )
+
+
+def norm_update(stats: RunningNorm, batch: torch.Tensor) -> RunningNorm:
+    """Merge a batch (B, dim) into the running stats."""
+    bn = float(batch.shape[0])
+    bmean = batch.mean(0)
+    bvar = (batch - bmean).square().mean(0)
+    n = stats.n + bn
+    safe = torch.clamp(n, min=1.0)
+    delta = bmean - stats.mean
+    mean = stats.mean + delta * (bn / safe)
+    m2 = stats.var * stats.n + bvar * bn + delta.square() * stats.n * bn / safe
+    return RunningNorm(n=n, mean=mean, var=m2 / safe)
+
+
+def normalize(stats: RunningNorm, x: torch.Tensor, clip: float = 5.0) -> torch.Tensor:
+    """(x - mean) / std, clipped to [-clip, clip]."""
+    return ((x - stats.mean) / torch.sqrt(stats.var + 1e-8)).clamp(-clip, clip)

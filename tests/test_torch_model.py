@@ -140,8 +140,20 @@ def test_control_step_runs_without_importing_jax():
         "out = engine.control_step(m, st, z, control_freq_inv=1, ext_force=torch.ones(1, "
         "m.nbody, 3, dtype=torch.float64), proj=(pp, -pp, 0.1 * one, one))\n"
         "assert len(out) == 5 and torch.isfinite(out[4][0]).all()\n"
+        # the trainer (one PPO iteration, a checkpoint) and a CEM plan
+        "import tempfile\n"
+        "from smplsim_tpu_torch import run\n"
+        "from smplsim_tpu_torch.control import CEMConfig, CEMPlanner\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    ts = run.main(['output_dir=' + d, 'num_epochs=1', 'env.control_frequency_inv=1', "
+        "'learning.num_envs=2', 'learning.horizon=1', 'learning.opt_num_epochs=1', "
+        "'learning.num_minibatches=1', 'learning.policy_widths=8', "
+        "'learning.value_widths=8'], device='cpu')\n"
+        "assert ts.epoch == 1\n"
+        "cem = CEMPlanner(env, CEMConfig(horizon=1, num_samples=2, num_elites=1, iterations=1))\n"
+        "assert torch.isfinite(cem.plan(env.reset(1, g), generator=g)[2])\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-        "'smplsim_tpu')]\n"
+        "'optax', 'orbax', 'smplsim_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
