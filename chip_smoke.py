@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
      registers and local memory (cudaFuncGetAttributes) of every
      instantiation of Kernels A (tiled), B (warp form), C, D and E (warp and
      tiled forms), failing if a float32 one spills; B's resident systems per SM, failing unless 4096
-     systems at K=32 fit the card in one wave;
+     systems at K=32 fit the card in one wave; Kernel A's tiled launches at
+     n = 159 (m = 1, 33; float64 also 65, in chunks): threads, shared
+     memory, rhs chunk width, registers and resident blocks per SM;
   2. kernels against their plain PyTorch versions on the card, on inputs
      taken from a real substep of the main path (B=4096 HumanoidSpeed envs
      after a few control steps): Kernel A chol_solve at m=1 + diag
@@ -79,14 +81,18 @@ Phases (any failure exits non-zero):
      residual within 1e-5 (and |L L^T - A| / |A| for C); C exactly zero
      above the diagonal; 7.0 and NaN above the diagonal change no bit of
      either result; a NaN system in the middle of a batch of 33 changes no
-     bit of the other 32;
+     bit of the other 32; and n = 159 (SMPLX) at B = 3, m in (1, 33);
  12. edge cases of Kernels A and B against their plain versions. A: B in
      (1, 3, 33), n in (32, 75, 180) (180 is above the tiles: the column
-     kernel, float32 only; float64 must raise), m in (1, 2, 33, 75), with
+     kernel, float32 only; float64 must raise), m in (1, 2, 33, 75), and
+     n in (159, 176) at m in (1, 33, 65) (float64 in rhs chunks; no n <=
+     176 reaches the column kernel), with
      and without d, float64 elementwise within 1e-9, float32 by relative
      residual within 1e-5, 7.0 and NaN above the diagonal change no bit, a
      NaN system in a batch of 33 changes no bit of the others, all three
-     routes reached. B: K in (8, 32, 33, 64, 80) (80 is above the warp
+     routes reached; the solve of m columns (in chunks where they do not
+     fit at once) equals its two column slices, each one chunk, bit for bit
+     (float64 n = 75, 159, 176; float32 n = 159). B: K in (8, 32, 33, 64, 80) (80 is above the warp
      form: the block form), 256 Delassus-like systems, one with no active
      row (result 0); iters = 0 and a huge tol return max(f0, 0) * active;
      a NaN system changes no bit of the others; float64 elementwise within
@@ -94,7 +100,7 @@ Phases (any failure exits non-zero):
      missing the tolerance on at most 1% of the systems where the plain
      version meets it;
  13. edge cases of Kernel E against its plain version on random SPD
-     systems: B in (1, 3, 33), n in (8, 32, 33, 64, 75, 180), all three
+     systems: B in (1, 3, 33), n in (8, 32, 33, 64, 75, 159, 180), all three
      routes of linalg.cholesky_route (180 is above the tiles: the column
      kernel, float32 only; float64 must raise); float64 elementwise within
      1e-9, float32 by |L L^T - A| / |A| within 1e-5, exact zeros above the
@@ -156,10 +162,36 @@ Phases (any failure exits non-zero):
      and no C, D or E; its best cost is at most the zero-action rollout's;
      the env's generator is as it was; seconds per plan; then
      receding_horizon(state, 2).
+ 20. the β batch (bench.py's BENCH_BETA_HET path): 64 bodies built by
+     build_robot_model from the synthetic SMPL body
+     (tests/_torch_synthetic_body.py) with β ~ N(0, 0.8²) drawn by
+     np.random.RandomState(11), the native hull library asserted, their
+     build time; stack_models, tile_model to 4096 envs; HumanoidSpeed, 16
+     control steps of uniform random actions at the bench QP: exactly 30
+     chol_solve + 15 newton_qp launches per control step, env-steps/s
+     beside phase 3's, overflow and stalled shares; card vs CPU over 3
+     control steps of 3 substeps on 8 of the bodies within 5e-3; Kernels A
+     and B against their plain versions on a real substep after 3 control
+     steps (hold_a_b), leaving out the wild envs (|qvel| > 1e3: flung far
+     away, their float32 M may not be SPD, where kernel and plain version
+     must both give non-finite values, and their QPs are too ill-conditioned
+     in float32 for two solvers to agree), counted; B's float32 objectives
+     where both solvers meet the tolerance, each system left out shown to
+     stop at the iteration cap in at least one solver, the reading over
+     all printed beside it (a third of the systems fill K);
+ 21. the SMPLX humanoid (bench.py's BENCH_MODEL=smplx path: 52 bodies with
+     finger capsules, nv = 159): 4096 envs, 8 control steps at the bench
+     QP, 30 + 15 launches each, env-steps/s, overflow and stalled shares,
+     the largest active-row count; A at n = 159 (m = 1 + diag, m = 33) and
+     B against their plain versions on a real substep, as in phase 20 (B's
+     objectives where both meet the tolerance), with time, bound and
+     library time; one float64 control step at the package's default
+     QP (K = 64: A at m = 65 in two chunks) on 64 envs from a reset, card
+     vs CPU within 1e-9, and A's chunked launch timed on its systems.
 
-Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval and
-19's plan each set every launch count to 0 just before and read them just
-after. The third-to-last line is the `kernels` JSON object, the
+Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
+19's plan, 20's and 21's runs and 21's float64 step each set every launch
+count to 0 just before and read them just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -192,14 +224,23 @@ CMP_CFI = 2
 ILQR_ITERS = 2
 # phase 17: substeps per control step of the card-vs-CPU check from Fall states
 PERTURB_CMP_CFI = 3
+# phases 20-21: β bodies (bench.py's BENCH_BETAS), control steps of the β
+# batch and of the SMPLX humanoid, envs of the SMPLX float64 step
+N_BETAS = 64
+BETA_STEPS = 16
+SMPLX_STEPS = 8
+X64_ENVS = 64
+# phases 20-21 hold A and B on the envs below this |qvel| (held_inputs)
+WILD_QVEL = 1e3
 # phase 3's solver health with A's column kernel and B's block form, same
 # seed, draw and card: a kernel change that moves them moves the operating
 # point
 PREVIOUS_HEALTH = {"overflow": 0.20546, "stalled": 0.07318}
-# H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 and float64
-# rates outside the tensor cores
+# H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 outside the
+# tensor cores, float64 on them (the card's top rate for the type; 34e12
+# outside them)
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def fail(msg: str) -> None:
@@ -337,6 +378,34 @@ def newton_qp_raw(build, A, b, a, f0, f, it, tol) -> None:
         stream_ptr()), name)
 
 
+def objective_where_converged(tag, rel_o, conv_p, conv_k, its, it, ok) -> None:
+    """newton_qp float32: the objectives of kernel and plain (relative gap
+    rel_o) within 1e-4 on the systems of `ok` where both met the tolerance,
+    and each system they part on by more than 1e-4 stopped at the iteration
+    cap in at least one solver. Both stop only at the tolerance or at the
+    cap (newton_qp.cu, qp.newton_qp_plain_counted), so a system short of the
+    tolerance ran every iteration; the plain version's count shows it. A
+    system stopped by the cap leaves its iterate mid-way, where float32
+    rounding moves the objective by more than 1e-4. Prints the reading over
+    all systems of `ok` beside it."""
+    both = ok & conv_p & conv_k
+    off = ok & (rel_o > 1e-4)
+    o_both = rel_o[both].max().item() if both.any() else 0.0
+    o_all = rel_o[ok].max().item() if ok.any() else 0.0
+    print(f"  {tag}newton_qp float32: objective within {o_both:.3e} on the {int(both.sum())} of "
+          f"{int(ok.sum())} systems where both meet tol, {o_all:.3e} over all; {int(off.sum())} "
+          f"part by more than 1e-4: the plain version short of tol in "
+          f"{int((off & ~conv_p).sum())}, the kernel in {int((off & ~conv_k).sum())}", flush=True)
+    check(bool((its[ok & ~conv_p] == it).all()),
+          f"{tag}newton_qp float32: every system the plain version leaves short of tol ran all "
+          f"{it} iterations")
+    check(not bool((off & both).any()),
+          f"{tag}newton_qp float32: each of the {int(off.sum())} systems whose objectives part by "
+          "more than 1e-4 stopped at the iteration cap in at least one solver")
+    check(o_both <= 1e-4, f"{tag}newton_qp float32 objective within {o_both:.3e} <= 1e-4 where "
+                          "both meet the tolerance")
+
+
 def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
     """newton_qp float32: kernel against plain on the systems with finite
     inputs and plain result (with converged_only, on those where both meet
@@ -347,21 +416,19 @@ def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
     ok = finite_rows(A, b, f0, fp)
     check(bool(torch.isfinite(fk[ok]).all()),
           f"newton_qp float32 finite on the {int(ok.sum())} systems with finite inputs")
-    held = ok
+    obj = lambda f: 0.5 * (f * (A @ f[..., None])[..., 0]).sum(-1) - (b * f).sum(-1)
+    rel_o = (obj(fk) - obj(fp)).abs() / obj(fp).abs().clamp_min(1e-12)
     if converged_only:
         tol_sys = tol * (1.0 + b.abs().amax(-1))
         conv_k, conv_p = qp.kkt_residual(A, b, fk, a) <= tol_sys, qp.kkt_residual(A, b, fp, a) <= tol_sys
-        held = ok & conv_k & conv_p
         only_p = int((ok & conv_p & ~conv_k).sum())
-        print(f"  newton_qp float32: both meet tol in {int(held.sum())} of {int(ok.sum())} "
-              f"systems; plain only in {only_p}, kernel only in "
-              f"{int((ok & conv_k & ~conv_p).sum())}", flush=True)
         check(only_p <= int(ok.sum()) // 100,
               f"newton_qp float32: the kernel misses the tolerance on at most 1% of the "
               f"systems where the plain version meets it ({only_p})")
-    obj = lambda f: 0.5 * (f * (A @ f[..., None])[..., 0]).sum(-1) - (b * f).sum(-1)
-    orel = ((obj(fk) - obj(fp)).abs() / obj(fp).abs().clamp_min(1e-12))[held].amax().item()
-    check(orel <= 1e-4, f"newton_qp float32 objective within {orel:.3e} <= 1e-4")
+        objective_where_converged("", rel_o, conv_p, conv_k, its, it, ok)
+    else:
+        orel = rel_o[ok].amax().item()
+        check(orel <= 1e-4, f"newton_qp float32 objective within {orel:.3e} <= 1e-4")
     ms = cuda_ms(lambda: qp.newton_qp(A, b, a, f0, it, tol), 20)
     fo = torch.empty_like(b)
     prev = cuda_ms(lambda: newton_qp_raw(build, A, b, a, f0, fo, it, tol), 20)
@@ -394,14 +461,17 @@ def edge_cases(linalg, dev) -> None:
         worst[key] = max(worst.get(key, 0.0), val)
 
     garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
+    # n = 159: the SMPLX humanoid's nv, one batch
+    shapes = ((32, (1, 3, 33), (1, 2, 32, 75)), (75, (1, 3, 33), (1, 2, 32, 75)),
+              (159, (3,), (1, 33)))
     for dt in (torch.float64, torch.float32):
         name = "float64" if dt == torch.float64 else "float32"
-        for n in (32, 75):
-            for Bn in (1, 3, 33):
+        for n, batches, ms_ in shapes:
+            for Bn in batches:
                 G = torch.randn(Bn, n, n, generator=g, device=dev, dtype=torch.float64)
                 A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
                 Lf = linalg.cholesky_plain(A)
-                for m in (1, 2, 32, 75):
+                for m in ms_:
                     b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=torch.float64).to(dt)
                     shape = f"B={Bn}, n={n}, m={m}"
                     for trans in (False, True):
@@ -453,7 +523,7 @@ def edge_cases(linalg, dev) -> None:
                  "residual": "relative residual", "factor": "|L L^T - A| / |A|"}[what]
         check(val <= tol, f"{'cho_factor_solve' if kern == 'C' else 'solve_lower'} {name} "
                           f"{label}, worst over B in (1, 3, 33), n in (32, 75), m in "
-                          f"(1, 2, 32, 75): {val:.3e} <= {tol:g}")
+                          f"(1, 2, 32, 75) and B = 3, n = 159, m in (1, 33): {val:.3e} <= {tol:g}")
     print("  ok: 7.0 and NaN above the diagonal change no bit of C's or D's results", flush=True)
 
 
@@ -469,11 +539,14 @@ def edge_cases_ab(linalg, qp, dev) -> None:
 
     garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
     # Kernel A: n = 180 is above the tiles (n <= 176): the column kernel,
-    # which holds it in float32 only (float64 exceeds a block's shared memory)
+    # which holds it in float32 only (float64 exceeds a block's shared
+    # memory); n = 159 (SMPLX) and 176 at m up to 65, where float64 solves
+    # its columns in chunks
     routes = set()
+    m_of = lambda n: (1, 33, 65) if n in (159, 176) else (1, 2, 33, 75)
     for dt in (torch.float64, torch.float32):
         name = "float64" if dt == torch.float64 else "float32"
-        for n in (32, 75, 180):
+        for n in (32, 75, 159, 176, 180):
             if dt == torch.float64 and n == 180:
                 A = torch.eye(n, device=dev, dtype=dt).expand(1, n, n).contiguous()
                 try:
@@ -487,7 +560,7 @@ def edge_cases_ab(linalg, qp, dev) -> None:
             for Bn in (1, 3, 33):
                 G = torch.randn(Bn, n, n, generator=g, device=dev, dtype=torch.float64)
                 A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
-                for m in (1, 2, 33, 75):
+                for m in m_of(n):
                     b = torch.randn(Bn, n, m, generator=g, device=dev, dtype=torch.float64).to(dt)
                     routes.add((n, m, linalg.chol_solve_route(n, m, A.element_size())))
                     for d in (None, torch.rand(Bn, n, generator=g, device=dev, dtype=dt)):
@@ -516,6 +589,29 @@ def edge_cases_ab(linalg, qp, dev) -> None:
     print(f"  chol_solve routes (n, m, route): {sorted(routes)}", flush=True)
     check({r for _, _, r in routes} == {"warp", "thread", "column"},
           "the edge cases reach all three of chol_solve's routes")
+    check(all(r != "column" for n, _, r in routes if n <= 176),
+          "no n <= 176 went to the column kernel")
+    # the chunked solve equals the unchunked one bit for bit: the wrapper's
+    # launch on all m columns (in chunks where they do not fit at once)
+    # against its launches on two column slices, each solved in one chunk on
+    # the same factor (a column's arithmetic does not depend on its slot)
+    for n, m, dt in ((159, 65, torch.float64), (176, 65, torch.float64),
+                     (159, 65, torch.float32), (75, 33, torch.float64)):
+        G = torch.randn(33, n, n, generator=g, device=dev, dtype=torch.float64)
+        A = (G @ G.mT / n + torch.eye(n, device=dev, dtype=torch.float64)).to(dt)
+        b = torch.randn(33, n, m, generator=g, device=dev, dtype=torch.float64).to(dt)
+        size, half = A.element_size(), (m + 1) // 2
+        lay = lambda m_: linalg.chol_solve_tiled_layout(n, m_, size, "thread")
+        chunks = lambda m_: -(-m_ // lay(m_)[1])
+        check(linalg._tile_threads(n, True) >= 32 * -(-m // 32)
+              and chunks(half) == chunks(m - half) == 1,
+              f"chol_solve {dt} n={n}: the slices of {half} and {m - half} columns take one "
+              f"chunk each, the factor's threads as at m={m}")
+        xs = torch.cat([linalg.chol_solve(A, b[..., :half].contiguous()),
+                        linalg.chol_solve(A, b[..., half:].contiguous())], -1)
+        check(torch.equal(linalg.chol_solve(A, b), xs),
+              f"chol_solve {dt} n={n} m={m}: {chunks(m)} chunk(s) of {lay(m)[1]} columns "
+              f"equal the two one-chunk slices bit for bit")
 
     # Kernel B: K = 80 is above the warp form (K <= 64): the block form
     Bq, iters, nv = 256, 16, 75
@@ -579,7 +675,7 @@ def edge_cases_e(linalg, dev) -> None:
     garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
     for dt in (torch.float64, torch.float32):
         name = "float64" if dt == torch.float64 else "float32"
-        for n in (8, 32, 33, 64, 75, 180):
+        for n in (8, 32, 33, 64, 75, 159, 180):
             route = linalg.cholesky_route(n, torch.finfo(dt).bits // 8)
             if dt == torch.float64 and n == 180:
                 A = torch.eye(n, device=dev, dtype=dt).expand(1, n, n).contiguous()
@@ -625,7 +721,7 @@ def edge_cases_e(linalg, dev) -> None:
         label = {"elementwise": "vs plain, per system relative to max|plain|",
                  "factor": "|L L^T - A| / |A|"}[key]
         check(val <= tol, f"cholesky {name} {label}, worst over B in (1, 3, 33), n in (8, 32, "
-                          f"33, 64, 75, 180): {val:.3e} <= {tol:g}")
+                          f"33, 64, 75, 159, 180): {val:.3e} <= {tol:g}")
     print("  ok: 7.0 and NaN above the diagonal change no bit of E's factor", flush=True)
 
 
@@ -667,7 +763,7 @@ def substep_inputs(model, state, act, qp_rows: int = QP["qp_rows"]) -> dict:
 
 
 def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
-             tol32: float = QP["qp_tol"]) -> dict:
+             tol32: float = QP["qp_tol"], converged_only: bool = False) -> dict:
     """Kernels A (chol_solve at m=1 + diag and m = 1 + K) and B (newton_qp
     with `iters` iterations, float32 tolerance tol32, float64 1e-12)
     against their plain versions on `inputs` (substep_inputs): float64
@@ -761,14 +857,18 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
             # objective and KKT residual below.
             both = conv_p & conv_k
             rel = ((fk - fp).abs() / (1.0 + fp.abs())).amax(1)
+            worst = lambda m_: rel[m_].max().item() if m_.any() else 0.0
             print(f"  {tag}newton_qp float64: {int(both.sum())} of {both.numel()} systems meet tol "
                   f"1e-12 within {it} iterations in both; {int((conv_p ^ conv_k).sum())} in "
-                  f"one only; |k-p|/(1+|p|) max {rel[both].max().item():.3e} over the first, "
-                  f"{rel[~both].max().item() if (~both).any() else 0.0:.3e} over the rest",
-                  flush=True)
-            check(rel[both].max().item() <= 1e-9,
-                  "newton_qp float64 vs plain elementwise <= 1e-9 where both converge")
+                  f"one only; |k-p|/(1+|p|) max {worst(both):.3e} over the first, "
+                  f"{worst(~both):.3e} over the rest", flush=True)
+            check(worst(both) <= 1e-9,
+                  f"newton_qp float64 vs plain elementwise <= 1e-9 where both converge "
+                  f"({int(both.sum())} systems)")
             check(orel <= 1e-12, f"{tag}newton_qp float64 objective within {orel:.3e} <= 1e-12")
+        elif converged_only:
+            objective_where_converged(tag, (ok_ - op_).abs() / op_.abs().clamp_min(1e-12),
+                                      conv_p, conv_k, its, it, torch.ones_like(conv_p))
         else:
             check(orel <= 1e-4, f"{tag}newton_qp float32 objective within {orel:.3e} <= 1e-4")
         # the KKT residual: where the plain version meets its tolerance the
@@ -781,7 +881,7 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
               f"where the plain version meets it ({only_p})")
         if dt != torch.float32:
             continue
-        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol)
+        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol, converged_only)
         r = report["qp"]
         print(f"  {tag}newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
               f"plain {r['plain_ms']:.4f} ms, bound "
@@ -791,6 +891,56 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
               f"{r['max_rel_err']:.3e})", flush=True)
 
     return report
+
+
+def env_run(env_, n_steps, per_auto, counted, action, gen):
+    """reset(B_MAIN), then n_steps x step_autoreset with every launch
+    count set to 0 just before and read just after: checks the launches
+    per step_autoreset, finite state and, for a getup env, that no env
+    terminates while its recovery counter is > 0. action(n) draws the
+    actions; the result holds the largest active-row count too."""
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    st = env_.reset(B_MAIN, gen)
+    torch.cuda.synchronize()
+    out = dict(reset_ms=(time.time() - t0) * 1e3,
+               reset_launches=[fn.launches for fn in counted])
+    for fn in counted:
+        fn.launches = 0
+    ov = stl = 0.0
+    nact = torch.zeros((), dtype=torch.int32, device=st.cur_t.device)
+    getup = hasattr(st.task, "recovery_counter")
+    suppressed_ok = True
+    t0 = time.time()
+    for _ in range(n_steps):
+        recovering = st.task.recovery_counter > 0 if getup else None
+        st = env_.step_autoreset(st, action(B_MAIN))
+        if getup:
+            suppressed_ok &= not bool((st.terminated & recovering).any())
+        ov += st.info["overflow"].float().mean()
+        stl += st.info["stalled"].float().mean()
+        nact = torch.maximum(nact, st.info["nactive"].max())
+    torch.cuda.synchronize()
+    el = time.time() - t0
+    n_a, n_c, n_d, n_b, n_e = (fn.launches for fn in counted)
+    a_per, b_per = per_auto
+    check(n_a == a_per * n_steps and n_b == b_per * n_steps,
+          f"chol_solve {n_a} = {a_per} x {n_steps} and newton_qp {n_b} = {b_per} x {n_steps} "
+          "launches over the step_autoresets")
+    check(n_c == 0 and n_d == 0 and n_e == 0,
+          f"cho_factor_solve, solve_lower and cholesky not launched ({n_c}, {n_d}, {n_e})")
+    if getup:
+        check(suppressed_ok, "no env terminated while its recovery counter was > 0")
+    fin = all(bool(torch.isfinite(x).all()) for x in (
+        st.phys.qpos, st.phys.qvel, st.obs, st.reward, *st.pd_cache))
+    check(fin, "state finite")
+    check(st.obs.shape == (B_MAIN, env_.obs_size), f"obs shape {tuple(st.obs.shape)}")
+    out.update(state=st, rate=B_MAIN * n_steps / el, overflow=(ov / n_steps).item(),
+               stalled=(stl / n_steps).item(), nactive_max=int(nact), chol_solve=n_a, newton_qp=n_b,
+               per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps})
+    return out
 
 
 def same_bits(a: list, b: list) -> bool:
@@ -965,6 +1115,198 @@ def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> 
                 report=t_report)
 
 
+def time_chol(linalg, A, b, d) -> dict:
+    """Kernel A (the wrapper) on (A, b, d) against its plain version:
+    max|kernel - plain| and its relative form, times of kernel, plain
+    version and the library call (cholesky + cholesky_solve), and the
+    bound, in A's dtype."""
+    xk = linalg.chol_solve(A, b, d)
+    xp = linalg.chol_solve_plain(A, b, d)
+    H = A if d is None else A + torch.diag_embed(d)
+
+    def library():
+        return torch.cholesky_solve(b, torch.linalg.cholesky(H))
+    Bn, n, m = b.shape
+    nbytes = A.element_size() * Bn * (n * (n + 1) / 2 + 2 * n * m + (n if d is not None else 0))
+    bms, by = bound_ms(nbytes, Bn * (n ** 3 / 3 + 2 * n * n * m), A.dtype)
+    return dict(max_abs_err=(xk - xp).abs().amax().item(), max_rel_err=rel_diff(xk, xp),
+                ms=cuda_ms(lambda: linalg.chol_solve(A, b, d), 10),
+                plain_ms=cuda_ms(lambda: linalg.chol_solve_plain(A, b, d), 2),
+                library_ms=cuda_ms(library, 5), bound_ms=bms, bound_by=by,
+                route=linalg.chol_solve_route(n, m, A.element_size()),
+                chunk=linalg.chol_solve_tiled_layout(n, m, A.element_size(), "thread")[1])
+
+
+def held_inputs(tag: str, inputs: dict, state) -> dict:
+    """substep_inputs restricted to the systems of envs that are not wild.
+    Under full-scale random actions a few envs are flung far away at |qvel|
+    of 1e6 (ROADMAP §3): their float32 M may not be SPD (there the plain
+    factor and Kernel A must both give non-finite values: checked), and
+    their QPs are too ill-conditioned in float32 for two solvers to agree
+    to 1e-4. Those with |qvel| > WILD_QVEL or a non-SPD system are left
+    out, and counted."""
+    from smplsim_tpu_torch.ops import linalg
+
+    tame = state.phys.qvel.abs().amax(1) <= WILD_QVEL
+    ok = tame
+    for A, b, d in inputs["chol"].values():
+        A64, b64 = A.double(), b.double()
+        d64 = None if d is None else d.double()
+        fin_p = torch.isfinite(linalg.chol_solve_plain(A64, b64, d64)).flatten(1).all(1)
+        fin_k = torch.isfinite(linalg.chol_solve(A64, b64, d64)).flatten(1).all(1)
+        check(torch.equal(fin_p, fin_k), f"{tag}chol_solve float64: the kernel's non-finite "
+                                         f"systems are the plain version's ({int((~fin_p).sum())})")
+        ok = ok & fin_p
+    print(f"  {tag}systems held: {int(ok.sum())} of {ok.numel()} ({int((~tame).sum())} envs "
+          f"with |qvel| > {WILD_QVEL:g}, {int((tame & ~ok).sum())} more with a system not SPD)",
+          flush=True)
+    sub = lambda t: None if t is None else t[ok].contiguous()
+    return dict(chol={k: tuple(sub(t) for t in v) for k, v in inputs["chol"].items()},
+                qp=tuple(sub(t) for t in inputs["qp"]), full_rows=inputs["full_rows"],
+                held=int(ok.sum()))
+
+
+def advanced(env, action, gen, steps: int = 3):
+    """B_MAIN env states after `steps` step_autoresets from a reset."""
+    st = env.reset(B_MAIN, gen)
+    for _ in range(steps):
+        st = env.step_autoreset(st, action(B_MAIN))
+    return st
+
+
+def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
+    """Phases 20 and 21: the β-heterogeneous batch and the SMPLX humanoid,
+    built from the synthetic bodies of tests/_torch_synthetic_body.py (the
+    licensed SMPL files are not in the repository), as bench.py's
+    BENCH_BETA_HET and BENCH_MODEL=smplx paths build them."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _torch_synthetic_body import make_synthetic_body
+
+    from smplsim_tpu_torch import native
+    from smplsim_tpu_torch.body_model import SMPLParser
+    from smplsim_tpu_torch.envs import HumanoidSpeed
+    from smplsim_tpu_torch.models import stack_models, tile_model
+    from smplsim_tpu_torch.models.builder import RobotConfig, build_robot_model
+    from smplsim_tpu_torch.ops import linalg
+    from smplsim_tpu_torch.physics import constraints, engine, solver
+
+    out = {}
+    # ------------------------------------------------------- 20. the β batch
+    print("phase 20: a β-heterogeneous HumanoidSpeed batch (64 bodies over 4096 envs)", flush=True)
+    check(native.available(), "the native asset-prep library builds with g++ (the JAX package's "
+                              "hull volumes, not scipy's)")
+    parser = SMPLParser(data=make_synthetic_body(np.random.RandomState(0), "smpl"))
+    rng = np.random.RandomState(11)
+    t0 = time.time()
+    bodies = [build_robot_model(parser, betas=rng.randn(1, 10) * 0.8, cfg=RobotConfig(),
+                                dtype=torch.float32, device=dev)[0] for _ in range(N_BETAS)]
+    build_s = time.time() - t0
+    stacked = stack_models(bodies)
+    mass = stacked.body_mass.sum(1)
+    check(float(mass.std()) > 1e-2, f"the {N_BETAS} bodies differ: total mass "
+                                    f"{float(mass.min()):.3f}-{float(mass.max()):.3f} kg")
+    model = tile_model(stacked, B_MAIN)
+    env = HumanoidSpeed(model, **QP)
+    act = lambda n: torch.rand(n, model.nu, generator=gen, device=dev) * 2.0 - 1.0
+    b_run = env_run(env, BETA_STEPS, (2 * CFI, CFI), counted, act, gen)
+    print(f"  {N_BETAS} bodies built in {build_s:.3f} s ({build_s / N_BETAS * 1e3:.1f} ms each, "
+          f"host); {BETA_STEPS} control steps x {B_MAIN} envs: {b_run['rate']:.1f} env-steps/s "
+          f"beside the shared model's {speed_rate:.1f} in this call ({b_run['rate'] / speed_rate:.3f}x);"
+          f" overflow {b_run['overflow']:.5f}, stalled {b_run['stalled']:.5f}, nactive_max "
+          f"{b_run['nactive_max']}; on {card}", flush=True)
+    # card vs CPU on 8 envs (bodies 0-7) from a reset, half-scale actions
+    m8 = tile_model(stacked, 8)
+    m8_cpu = m8.to(device="cpu")
+    st_g = HumanoidSpeed(m8, **QP).reset(8, gen).phys
+    st_c = engine.PhysicsState(st_g.qpos.cpu(), st_g.qvel.cpu())
+    cache_g = engine.pd_cache(m8, st_g) + (torch.zeros(8, constraints.NEFC, device=dev),)
+    cache_c = tuple(x.cpu() for x in cache_g)
+    for _ in range(3):
+        a = 0.5 * act(8)
+        st_g, _, _, cache_g = engine.control_step(m8, st_g, a, 3, cache_g, **QP)
+        st_c, _, _, cache_c = engine.control_step(m8_cpu, st_c, a.cpu(), 3, cache_c, **QP)
+    diff = ((st_g.qpos.cpu() - st_c.qpos).abs() / (1.0 + st_c.qpos.abs())).amax().item()
+    check(diff <= 5e-3, f"β batch card vs CPU, 8 bodies, 3 control steps of 3 substeps: qpos "
+                        f"{diff:.3e} <= 5e-3")
+    # A and B on a real substep after 3 control steps from a reset, as phase
+    # 2 takes them, on the envs that are not wild (held_inputs)
+    print("phase 20: kernels A and B against their plain versions (β batch inputs)", flush=True)
+    b_state = advanced(env, act, gen)
+    b_inputs = held_inputs("beta ", substep_inputs(model, b_state, act(B_MAIN)), b_state)
+    # the float32 QP objectives are held where both solvers meet the
+    # tolerance, as in phase 21: the systems that stop at the iteration cap
+    # (a third of the β systems fill all K = 32 rows) part by more than
+    # rounding; objective_where_converged shows each one left out is capped
+    out["beta"] = hold_a_b("beta ", b_inputs, converged_only=True)
+    out["beta"].update(full_rows=b_inputs["full_rows"], systems=b_inputs["held"])
+    out.update(b_run=b_run, build_s=build_s)
+
+    # -------------------------------------------------- 21. the SMPLX humanoid
+    print("phase 21: the SMPLX humanoid (52 bodies, nv = 159)", flush=True)
+    xparser = SMPLParser(data=make_synthetic_body(np.random.default_rng(1), "smplx"),
+                         model_type="smplx")
+    t0 = time.time()
+    xmodel = build_robot_model(xparser, cfg=RobotConfig(model="smplx"), dtype=torch.float32,
+                               device=dev)[0]
+    xbuild_s = time.time() - t0
+    check(xmodel.nbody == 52 and xmodel.nv == 159 and xmodel.nu == 153,
+          f"SMPLX humanoid: {xmodel.nbody} bodies, nv {xmodel.nv}, built in {xbuild_s:.3f} s")
+    xenv = HumanoidSpeed(xmodel, **QP)
+    xact = lambda n: torch.rand(n, xmodel.nu, generator=gen, device=dev) * 2.0 - 1.0
+    x_run = env_run(xenv, SMPLX_STEPS, (2 * CFI, CFI), counted, xact, gen)
+    print(f"  {SMPLX_STEPS} control steps x {B_MAIN} envs: {x_run['rate']:.1f} env-steps/s "
+          f"({x_run['rate'] / speed_rate:.3f}x the 24-body speed path in this call); overflow "
+          f"{x_run['overflow']:.5f}, stalled {x_run['stalled']:.5f}, nactive_max "
+          f"{x_run['nactive_max']}; on {card}", flush=True)
+    x_state = advanced(xenv, xact, gen)
+    x_inputs = held_inputs("smplx ", substep_inputs(xmodel, x_state, xact(B_MAIN)), x_state)
+    # the float32 QP objectives are held where both solvers meet the
+    # tolerance: every SMPLX system fills all K = 32 rows (its overflow share
+    # is 1) and many stop at the iteration cap, where the two solvers' float32
+    # iterates part by more than rounding; objective_where_converged shows
+    # each one left out is capped
+    out["smplx"] = hold_a_b("smplx ", x_inputs, converged_only=True)
+    out["smplx"].update(full_rows=x_inputs["full_rows"], systems=x_inputs["held"])
+
+    # one float64 control step at the package's default QP (K = 64): the
+    # stable-PD solve at m = 1 + diag and the smooth + Delassus solve at
+    # m = 65, which takes Kernel A's chunked form at n = 159
+    x64 = xmodel.to(torch.float64)
+    x64_cpu = x64.to(device="cpu")
+    env64 = HumanoidSpeed(x64)
+    s64 = env64.reset(X64_ENVS, gen)
+    check(linalg.chol_solve_route(159, 65, 8) == "thread"
+          and linalg.chol_solve_tiled_layout(159, 65, 8, "thread")[1] == 64,
+          "float64 n=159 m=65 takes Kernel A's thread form in 2 chunks of 64 columns")
+    a64 = 0.1 * xact(X64_ENVS).double()
+    for fn in counted:
+        fn.launches = 0
+    st_g, _, _, c_g = engine.control_step(x64, s64.phys, a64, CFI, s64.pd_cache)
+    torch.cuda.synchronize()
+    x64_l = [fn.launches for fn in counted]
+    check(x64_l[0] == 2 * CFI and x64_l[3] == CFI and sum(x64_l) == 3 * CFI,
+          f"the float64 step launched chol_solve {x64_l[0]} = 30 and newton_qp {x64_l[3]} = 15")
+    st_c, _, _, c_c = engine.control_step(
+        x64_cpu, engine.PhysicsState(s64.phys.qpos.cpu(), s64.phys.qvel.cpu()), a64.cpu(), CFI,
+        tuple(x.cpu() for x in s64.pd_cache))
+    rel = lambda g_, c_: ((g_.cpu() - c_).abs() / (1.0 + c_.abs())).amax().item()
+    d64 = max(rel(st_g.qpos, st_c.qpos), rel(st_g.qvel, st_c.qvel), rel(c_g[2], c_c[2]))
+    check(d64 <= 1e-9, f"SMPLX float64 control step at the default QP, {X64_ENVS} envs, card vs "
+                       f"CPU: qpos, qvel and contact forces within {d64:.3e} <= 1e-9")
+    x64_inputs = substep_inputs(x64, dataclasses.replace(s64, pd_cache=c_g, phys=st_g),
+                                0.1 * xact(X64_ENVS).double(), qp_rows=solver.COMPACT_ROWS)
+    A65, b65, _ = x64_inputs["chol"]["m=65"]
+    out["smplx_f64_m65"] = time_chol(linalg, A65.contiguous(), b65.contiguous(), None)
+    r = out["smplx_f64_m65"]
+    check(r["max_rel_err"] <= 1e-9, f"chol_solve float64 n=159 m=65 ({r['route']} form, chunks "
+                                    f"of {r['chunk']}) vs plain: {r['max_rel_err']:.3e} <= 1e-9")
+    print(f"  chol_solve float64 n=159 m=65 on {X64_ENVS} systems: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
+    out.update(x_run=x_run, xbuild_s=xbuild_s, x64_launches=x64_l)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -1006,6 +1348,14 @@ def main() -> None:
     check(resident * sms >= B_MAIN,
           f"newton_qp float32 at K <= 32: {resident} systems resident per SM x {sms} SMs "
           f">= {B_MAIN}: the main path's batch runs in one wave")
+
+    # Kernel A's tiled launches at the SMPLX humanoid's n = 159 (phase 21)
+    for n_, m_, size in ((159, 1, 4), (159, 33, 4), (159, 1, 8), (159, 33, 8), (159, 65, 8)):
+        occ = linalg.chol_solve_occupancy(n_, m_, size)
+        print(f"  chol_solve tiled: {occ}")
+        check(occ["blocks_per_sm"] >= 1, f"chol_solve {occ['dtype']} n={n_} m={m_} "
+                                         f"({occ['form']} form) launches: {occ['blocks_per_sm']} "
+                                         "resident blocks per SM")
 
     model = registry.default_humanoid(torch.float32)
     env = HumanoidSpeed(model, **QP)
@@ -1458,54 +1808,8 @@ def main() -> None:
     print("phase 14: getup path (Fall init)", flush=True)
     genv = HumanoidGetup(model, GetupConfig(), **QP)
 
-    def env_run(env_, n_steps, per_auto):
-        """reset(B_MAIN), then n_steps x step_autoreset with every launch
-        count set to 0 just before and read just after: checks the launches
-        per step_autoreset, finite state and, for a getup env, that no env
-        terminates while its recovery counter is > 0."""
-        for fn in counted:
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        st = env_.reset(B_MAIN, gen)
-        torch.cuda.synchronize()
-        out = dict(reset_ms=(time.time() - t0) * 1e3,
-                   reset_launches=[fn.launches for fn in counted])
-        for fn in counted:
-            fn.launches = 0
-        ov = stl = 0.0
-        getup = hasattr(st.task, "recovery_counter")
-        suppressed_ok = True
-        t0 = time.time()
-        for _ in range(n_steps):
-            recovering = st.task.recovery_counter > 0 if getup else None
-            st = env_.step_autoreset(st, action(B_MAIN))
-            if getup:
-                suppressed_ok &= not bool((st.terminated & recovering).any())
-            ov += st.info["overflow"].float().mean()
-            stl += st.info["stalled"].float().mean()
-        torch.cuda.synchronize()
-        el = time.time() - t0
-        n_a, n_c, n_d, n_b, n_e = (fn.launches for fn in counted)
-        a_per, b_per = per_auto
-        check(n_a == a_per * n_steps and n_b == b_per * n_steps,
-              f"chol_solve {n_a} = {a_per} x {n_steps} and newton_qp {n_b} = {b_per} x {n_steps} "
-              "launches over the step_autoresets")
-        check(n_c == 0 and n_d == 0 and n_e == 0,
-              f"cho_factor_solve, solve_lower and cholesky not launched ({n_c}, {n_d}, {n_e})")
-        if getup:
-            check(suppressed_ok, "no env terminated while its recovery counter was > 0")
-        fin = all(bool(torch.isfinite(x).all()) for x in (
-            st.phys.qpos, st.phys.qvel, st.obs, st.reward, *st.pd_cache))
-        check(fin, "state finite")
-        check(st.obs.shape == (B_MAIN, env_.obs_size), f"obs shape {tuple(st.obs.shape)}")
-        out.update(state=st, rate=B_MAIN * n_steps / el, overflow=(ov / n_steps).item(),
-                   stalled=(stl / n_steps).item(), chol_solve=n_a, newton_qp=n_b,
-                   per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps})
-        return out
-
     G_STEPS = 8
-    g_run = env_run(genv, G_STEPS, (4 * 2 * CFI, 4 * CFI))
+    g_run = env_run(genv, G_STEPS, (4 * 2 * CFI, 4 * CFI), counted, action, gen)
     gstate, g_reset_l = g_run["state"], g_run["reset_launches"]
     check(g_reset_l[0] == 3 * 2 * CFI and g_reset_l[3] == 3 * CFI,
           f"reset: the Fall's 3 control steps launched chol_solve {g_reset_l[0]} and "
@@ -1526,7 +1830,7 @@ def main() -> None:
     penv = HumanoidGetup(model, GetupConfig(fall_init_pool=B_MAIN), **QP)
     torch.cuda.synchronize()
     pool_s = time.time() - t0
-    p_run = env_run(penv, 4, (2 * CFI, CFI))
+    p_run = env_run(penv, 4, (2 * CFI, CFI), counted, action, gen)
     check(sum(p_run["reset_launches"]) == 0,
           f"reset from the pool launches no kernel ({p_run['reset_launches']})")
     print(f"  Fall pool of {B_MAIN} built in {pool_s:.3f} s; 4 step_autoresets from the pool: "
@@ -1544,7 +1848,7 @@ def main() -> None:
     renv = HumanoidReach(model, ReachConfig(self_obs_v=2), **QP)
     check(renv.obs_size == obs_mod.self_obs_size(24, 2, True) + 3,
           f"reach obs width {renv.obs_size} = self_obs_size(24, 2, True) + 3")
-    r_run = env_run(renv, 4, (2 * CFI, CFI))
+    r_run = env_run(renv, 4, (2 * CFI, CFI), counted, action, gen)
     print(f"  4 step_autoresets x {B_MAIN} envs: {r_run['rate']:.1f} env-steps/s, overflow "
           f"{r_run['overflow']:.5f}, stalled {r_run['stalled']:.5f}", flush=True)
 
@@ -1643,26 +1947,33 @@ def main() -> None:
     report["trainer"] = tr["report"]
     trainer_chol = [k for k in report["trainer"] if k.startswith("m=")]
 
+    bp = body_paths(dev, counted, card, rate, gen)
+    report["beta"], report["smplx"] = bp["beta"], bp["smplx"]
+
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
     d_names = list(d_cases)
-    runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run}
+    runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run, "beta": bp["b_run"],
+             "smplx": bp["x_run"]}
     names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
     ball = dict(zip(names, l_hit))
+    x64 = dict(zip(names, bp["x64_launches"]))
 
     ppo_c, eval_c, cem_c = (dict(zip(names, x)) for x in (ppo_l, eval_l, cem_l))
 
     def paths(uhc, torque, jac, name):
         """Launch counts of kernel `name` on every counted run of the main
-        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, and
-        18's two PPO iterations and eval rollout and 19's plan."""
-        new = sum(r.get(name, 0) for r in runs4.values()) + ball[name]
+        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, 18's
+        two PPO iterations and eval rollout, 19's plan, and 20's β batch
+        and 21's SMPLX runs (its float64 step too)."""
+        new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
         return dict(
             launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name],
             launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
                                        "projectile": ball[name] / 25,
-                                       "eval": eval_c[name] / 8},
+                                       "eval": eval_c[name] / 8,
+                                       "smplx_float64": x64[name]},
             launches_per_jacobian=jac,
             launches_per_step_autoreset={k: r["per_step"].get(name, 0)
                                          for k, r in runs4.items()},
@@ -1681,14 +1992,19 @@ def main() -> None:
              bound_by=report["m=33"]["bound_by"],
              shapes={**{k: report[k] for k in ("m=1,diag", "m=33")},
                      **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")},
-                     **{f"trainer {k}": report["trainer"][k] for k in trainer_chol}}),
+                     **{f"trainer {k}": report["trainer"][k] for k in trainer_chol},
+                     **{f"{p} {k}": report[p][k] for p in ("beta", "smplx")
+                        for k in ("m=1,diag", "m=33")},
+                     "smplx float64 m=65": bp["smplx_f64_m65"]}),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
              replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
              **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"],
                                      "getup": {**report["getup"]["qp"],
                                                "full_rows": report["getup"]["full_rows"]},
                                      "trainer": {**report["trainer"]["qp"],
-                                                 "full_rows": report["trainer"]["full_rows"]}}),
+                                                 "full_rows": report["trainer"]["full_rows"]},
+                                     **{p: {**report[p]["qp"], "full_rows": report[p]["full_rows"]}
+                                        for p in ("beta", "smplx")}}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:104",
@@ -1714,7 +2030,8 @@ def main() -> None:
           f"{p_run['rate']:.1f}), reach {r_run['rate']:.1f}; PPO iteration (epoch 2): rollout "
           f"{ppo_sec['rollout']:.3f} s + update {ppo_sec['update']:.3f} s, "
           f"{pcfg.num_envs * pcfg.horizon / (ppo_sec['rollout'] + ppo_sec['update']):.1f} "
-          f"training env-steps/s; CEM: {plan_s:.3f} s per plan", flush=True)
+          f"training env-steps/s; CEM: {plan_s:.3f} s per plan; β batch "
+          f"{bp['b_run']['rate']:.1f}, SMPLX {bp['x_run']['rate']:.1f} env-steps/s", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -30,6 +30,13 @@ Semantics follow the JAX package (and the reference simulator it mirrors):
 
 The env's randomness is the torch.Generator it was reset with, carried in
 EnvState.rng; it must live on the model's device.
+
+An env on a stacked model of N rows (models/spec.py: each env its own
+body, e.g. N β bodies, `tile_model` to repeat them over a larger batch)
+steps batches of exactly N and raises on any other; all N timesteps must be
+equal. Its Fall pool is simulated on the bodies repeated in order (a pool
+size that N divides), and env i resets from the pool states of its own
+body.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ import numpy as np
 import torch
 
 from smplsim_tpu_torch.envs import obs as obs_mod
-from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.models.spec import RobotModel, check_batch, tile_model
 from smplsim_tpu_torch.physics import constraints, engine, kinematics, solver
 from smplsim_tpu_torch.physics.engine import PhysicsState
 
@@ -151,7 +158,10 @@ class HumanoidEnv:
                  qp_tol: float | None = None, keeps=None):
         self.model = model
         self.config = config or EnvConfig()
-        ts = float(model.timestep)
+        steps = model.timestep.reshape(-1)
+        if not bool((steps == steps[0]).all()):
+            raise ValueError("the rows of a stacked model must share one timestep")
+        ts = float(steps[0])
         if round(1.0 / ts) != self.config.sim_timestep_inv:
             raise ValueError(f"model timestep {ts:.6f} != 1/{self.config.sim_timestep_inv}")
         legal_bodies = {model.body_names.index(n) for n in self.config.contact_bodies}
@@ -163,8 +173,14 @@ class HumanoidEnv:
         self._qp_rows = min(rows, constraints.NEFC)
         self._fall_pool = None
         if self.config.state_init == "Fall" and self.config.fall_init_pool > 0:
+            pool = self.config.fall_init_pool
+            if model.stacked and pool % model.num_stacked:
+                raise ValueError(f"fall_init_pool {pool} is not a multiple of the "
+                                 f"{model.num_stacked} rows of the stacked model")
             gen = torch.Generator(device=model.device).manual_seed(self.config.fall_pool_seed)
-            self._fall_pool = self.fall_phys(self._fall_actions(self.config.fall_init_pool, gen))
+            self._fall_pool = self.fall_phys(
+                self._fall_actions(pool, gen),
+                tile_model(model, pool) if model.stacked else None)
 
     # ---------------- sizes ----------------
     @property
@@ -220,31 +236,33 @@ class HumanoidEnv:
         return torch.rand((3, batch, m.nu), generator=generator, dtype=m.dtype,
                           device=m.device) - 0.5
 
-    def fall_phys(self, actions: torch.Tensor) -> PhysicsState:
+    def fall_phys(self, actions: torch.Tensor, model: RobotModel | None = None) -> PhysicsState:
         """The Fall init under explicit actions (3,B,nu): from the drop pose
         (z = 0.3, root quat (1,0,0,0), joints at 0, at rest), one control
         step of the env's control mode per action row, the stable-PD cache
-        primed at the drop pose with a cold warm start."""
+        primed at the drop pose with a cold warm start. `model` replaces the
+        env's (the Fall pool's tiled bodies)."""
         cfg = self.config
-        m = self.model
+        m = self.model if model is None else model
         B = actions.shape[1]
         qpos = torch.zeros((B, m.nq), dtype=m.dtype, device=m.device)
         qpos[:, 2] = 0.3
         qpos[:, 3] = 1.0
         phys = PhysicsState(qpos, torch.zeros((B, m.nv), dtype=m.dtype, device=m.device))
-        cache = self._fresh_cache(phys)
+        cache = self._fresh_cache(phys, m)
+        reset_ref = self._reset_ref if m is self.model else None
         for a in actions:
             phys, _, _, cache = engine.control_step(
                 m, phys, a, control_freq_inv=cfg.control_frequency_inv, cache=cache,
-                reset_ref=self._reset_ref, **self._qp, control_mode=cfg.control_mode,
+                reset_ref=reset_ref, **self._qp, control_mode=cfg.control_mode,
                 power_scale=cfg.power_scale)
         return phys
 
-    def _fresh_cache(self, phys: PhysicsState):
+    def _fresh_cache(self, phys: PhysicsState, model: RobotModel | None = None):
         """uhc_pd: (M, C) at phys with a cold warm start; None otherwise."""
         if self.config.control_mode != "uhc_pd":
             return None
-        m = self.model
+        m = self.model if model is None else model
         return engine.pd_cache(m, phys) + (
             torch.zeros((phys.qpos.shape[0], constraints.NEFC), dtype=m.dtype, device=m.device),)
 
@@ -254,8 +272,14 @@ class HumanoidEnv:
         if cfg.state_init == "Fall":
             if self._fall_pool is None:
                 return self.fall_phys(self._fall_actions(batch, generator))
-            i = torch.randint(0, cfg.fall_init_pool, (batch,), generator=generator,
-                              device=m.device)
+            if m.stacked:
+                # env i draws among the pool states of body i
+                k = torch.randint(0, cfg.fall_init_pool // batch, (batch,), generator=generator,
+                                  device=m.device)
+                i = k * batch + torch.arange(batch, device=m.device)
+            else:
+                i = torch.randint(0, cfg.fall_init_pool, (batch,), generator=generator,
+                                  device=m.device)
             return PhysicsState(self._fall_pool.qpos[i], self._fall_pool.qvel[i])
         if cfg.state_init != "Default":
             raise NotImplementedError(cfg.state_init)
@@ -286,6 +310,7 @@ class HumanoidEnv:
         (the reference's forward pass after a reset) with a cold constraint
         warm start, in the other modes None."""
         m = self.model
+        check_batch(m, batch)
         dev = m.device
         cur_t = torch.zeros(batch, dtype=torch.int32, device=dev)
         task = self.reset_task(generator, self.init_task(batch), cur_t)
@@ -304,6 +329,7 @@ class HumanoidEnv:
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         cfg = self.config
         m = self.model
+        check_batch(m, action.shape[0])
         action = action.to(state.phys.qpos.dtype)
         if cfg.clip_actions:
             action = action.clamp(-1.0, 1.0)

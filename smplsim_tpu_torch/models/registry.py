@@ -2,8 +2,8 @@
 
 Port of smplsim_tpu/models/registry.py. `model_from_dict` takes exactly the
 dict that the JAX package's `registry.model_to_dict` returns (format
-"smplsim_tpu.RobotModel.v1"), so a model crosses between the packages as
-plain data.
+"smplsim_tpu.RobotModel.v1"), and `model_to_dict` writes it, so a model
+crosses between the packages as plain data either way.
 """
 from __future__ import annotations
 
@@ -18,6 +18,23 @@ import torch
 from smplsim_tpu_torch.models.spec import ARRAY_FIELDS, STATIC_FIELDS, RobotModel
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
+
+
+def model_to_dict(model: RobotModel) -> dict[str, Any]:
+    out: dict[str, Any] = {"format": "smplsim_tpu.RobotModel.v1"}
+    for f in ARRAY_FIELDS:
+        out[f] = getattr(model, f).detach().to("cpu", torch.float64).numpy().tolist()
+    for f in STATIC_FIELDS:
+        v = getattr(model, f)
+        out[f] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
+def save_model(model: RobotModel, path: str) -> None:
+    data = json.dumps(model_to_dict(model)).encode()
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wb") as f:
+        f.write(data)
 
 
 def model_from_dict(d: dict[str, Any], dtype: torch.dtype = torch.float32,

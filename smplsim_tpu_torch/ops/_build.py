@@ -35,6 +35,7 @@ _SIGNATURES = {
     "chol_solve_tiled_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "chol_solve_tiled_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "chol_solve_tiled_attrs": (_I, _P),
+    "chol_solve_tiled_occupancy": (_I, _I, _I, _I, _P),
     "cho_factor_solve_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cho_factor_solve_f64": (_P, _P, _P, _P, _I, _I, _I, _P),
     "cholesky_f32": (_P, _P, _I, _I, _P),

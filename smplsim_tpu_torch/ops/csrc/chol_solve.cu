@@ -32,6 +32,16 @@
 //     (tri::cols_forward/cols_backward, Kernel D's wide form); the forward
 //     pass leaves y in the thread's column of Xs and the backward pass
 //     overwrites it with x.
+//   * Right-hand-side chunks (the thread form): Xs holds cw column slots,
+//     the most that fit the shared memory left after the factor's region,
+//     in whole warps, and at most the m rounded up to the solve threads.
+//     The columns are solved cw at a time (ceil(m / cw) chunks), in the
+//     same launch, on the one factor; a column's arithmetic does not
+//     depend on its slot, so the chunked solve equals the unchunked one
+//     bit for bit. With one chunk
+//     the launch is the unchunked kernel. Chunks lift the limit that sent
+//     n = 159, m = 65 in float64 (233,088 B unchunked) to the column
+//     kernel: every n <= 176, m <= 65 in either type runs here.
 //   * Float32 uses the special-function reciprocal and square root with
 //     Newton steps (tri::div, tri::root): no call to the slow-path
 //     subroutines, no local memory. FP32 FMA, no TF32.
@@ -53,6 +63,8 @@
 // are not carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tri_warp.cuh"
 
@@ -168,7 +180,8 @@ __host__ __device__ __forceinline__ int lp_entries(int n) {
 template <typename T, int TPT, int R, bool kThreadCols>
 __global__ void __launch_bounds__(kTiledThreads)
 chol_solve_tiled_kernel(const T* __restrict__ A, const T* __restrict__ b,
-                        const T* __restrict__ diag, T* __restrict__ x, int n, int m, int mw) {
+                        const T* __restrict__ diag, T* __restrict__ x, int n, int m, int mw,
+                        int cw) {
   extern __shared__ __align__(16) unsigned char smem_tiled[];
   const int ntr = (n + 3) >> 2;
   T* D = reinterpret_cast<T*>(smem_tiled);  // the next diagonal tile (4x4)
@@ -187,17 +200,22 @@ chol_solve_tiled_kernel(const T* __restrict__ A, const T* __restrict__ b,
   if (!kThreadCols) {
     if (warp < m) tri::cho_solve_warps<T, R>(Lp, bs, xs, n, m, warp, nwarps, lane);
   } else {
-    T* Xs = Lp + lp_entries<true>(n);  // (n8, mw): y, then x, by column
-    for (int c = tid; c < mw; c += nt) {
-      const bool live = c < m;
-      tri::cols_forward<T>(
-          Lp, Xs, mw, c, n, [&](int i) { return live ? bs[(size_t)i * m + c] : T(0); },
-          [](int, T) {});
-      tri::cols_backward<T>(
-          Lp, Xs, mw, c, n, [&](int i) { return Xs[i * mw + c]; },
-          [&](int i, T v) {
-            if (live) xs[(size_t)i * m + c] = v;
-          });
+    // (n8, cw): y, then x, by column slot; columns c0 + s of chunk c0 in
+    // slot s, each slot owned by one thread across the chunks
+    T* Xs = Lp + lp_entries<true>(n);
+    for (int c0 = 0; c0 < m; c0 += cw) {
+      for (int s = tid; s < cw && c0 + s < mw; s += nt) {
+        const int c = c0 + s;
+        const bool live = c < m;
+        tri::cols_forward<T>(
+            Lp, Xs, cw, s, n, [&](int i) { return live ? bs[(size_t)i * m + c] : T(0); },
+            [](int, T) {});
+        tri::cols_backward<T>(
+            Lp, Xs, cw, s, n, [&](int i) { return Xs[i * cw + s]; },
+            [&](int i, T v) {
+              if (live) xs[(size_t)i * m + c] = v;
+            });
+      }
     }
   }
 }
@@ -213,36 +231,91 @@ inline int tiled_threads(int n, int m, int tpt, bool thread_cols, int* mw) {
   return f > solve ? f : solve;
 }
 
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block may use
+
+// Shared memory of the tiled form and the column slots cw of one rhs chunk:
+// the factor's region, then as many whole warps of slots as fit, at most
+// mw. Returns 0 where not one warp of slots fits (ops/linalg.py mirrors
+// this in chol_solve_tiled_layout).
+template <typename T, bool kThreadCols>
+size_t tiled_smem(int n, int mw, int* cw) {
+  const int n8 = (n + tri::kRB - 1) / tri::kRB * tri::kRB;
+  const size_t base = 16 + 16 * (size_t)((n + 3) / 4) + (size_t)lp_entries<kThreadCols>(n);
+  *cw = 0;
+  if (sizeof(T) * base > kSmemMax) return 0;
+  if (kThreadCols) {
+    const int fit = (int)((kSmemMax / sizeof(T) - base) / n8) / 32 * 32;
+    *cw = fit < mw ? fit : mw;
+    if (*cw < 32) return 0;
+  }
+  return sizeof(T) * (base + (size_t)n8 * *cw);
+}
+
 template <typename T, int TPT, int R, bool kThreadCols>
 int run_tiled(const void* A, const void* b, const void* diag, void* x, int B, int n, int m,
               cudaStream_t stream) {
-  int mw = 0;
+  int mw = 0, cw = 0;
   const int threads = tiled_threads(n, m, TPT, kThreadCols, &mw);
   if (threads > kTiledThreads) return (int)cudaErrorInvalidValue;
-  const int n8 = (n + tri::kRB - 1) / tri::kRB * tri::kRB;
-  const size_t smem = sizeof(T) * (16 + 16 * (size_t)((n + 3) / 4) +
-                                   (size_t)lp_entries<kThreadCols>(n) + (size_t)n8 * mw);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const size_t smem = tiled_smem<T, kThreadCols>(n, mw, &cw);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = tri::allow_smem(chol_solve_tiled_kernel<T, TPT, R, kThreadCols>, smem);
   if (err != cudaSuccess) return (int)err;
   chol_solve_tiled_kernel<T, TPT, R, kThreadCols><<<B, threads, smem, stream>>>(
-      (const T*)A, (const T*)b, (const T*)diag, (T*)x, n, m, mw);
+      (const T*)A, (const T*)b, (const T*)diag, (T*)x, n, m, mw, cw);
   return (int)cudaGetLastError();
+}
+
+// What a launch of (n, m) in form `form` takes: out = {threads, dynamic
+// shared memory bytes, rhs chunk width cw (0 in the warp form), resident
+// blocks per SM, registers per thread}.
+template <typename T, int TPT, int R, bool kThreadCols>
+int occupancy_of(int n, int m, int* out) {
+  int mw = 0, cw = 0;
+  const int threads = tiled_threads(n, m, TPT, kThreadCols, &mw);
+  const size_t smem = tiled_smem<T, kThreadCols>(n, mw, &cw);
+  if (threads > kTiledThreads || smem == 0) return (int)cudaErrorInvalidValue;
+  auto fn = chol_solve_tiled_kernel<T, TPT, R, kThreadCols>;
+  cudaError_t err = tri::allow_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  int attrs[2];
+  const int rc = tri::attributes((const void*)fn, attrs);
+  out[0] = threads;
+  out[1] = (int)smem;
+  out[2] = cw;
+  out[3] = blocks;
+  out[4] = attrs[0];
+  return rc;
 }
 
 // tiles per thread TPT and solve rows per lane R by n, as Kernel C (n <=
 // 176), but for the thread-per-column form at n <= 64, which takes TPT 2:
 // at TPT 1 ptxas holds it to 64 registers and spills
+// f(TPT, R) on the instantiation of order n, the TPT and R as
+// std::integral_constant
+template <int V>
+using IC = std::integral_constant<int, V>;
+template <bool kThreadCols, class F>
+int by_order(int n, F f) {
+  if (kThreadCols && n <= 64) return f(IC<2>{}, IC<1>{});
+  if (n <= 32) return f(IC<1>{}, IC<1>{});
+  if (n <= 64) return f(IC<1>{}, IC<2>{});
+  if (n <= 96) return f(IC<2>{}, IC<kThreadCols ? 1 : 3>{});
+  if (n <= 128) return f(IC<4>{}, IC<kThreadCols ? 1 : 4>{});
+  if (n <= 176) return f(IC<4>{}, IC<kThreadCols ? 1 : 6>{});
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, bool kThreadCols>
 int launch_tiled(const void* A, const void* b, const void* diag, void* x, int B, int n, int m,
                  cudaStream_t s) {
-  if (kThreadCols && n <= 64) return run_tiled<T, 2, 1, true>(A, b, diag, x, B, n, m, s);
-  if (n <= 32) return run_tiled<T, 1, 1, kThreadCols>(A, b, diag, x, B, n, m, s);
-  if (n <= 64) return run_tiled<T, 1, 2, kThreadCols>(A, b, diag, x, B, n, m, s);
-  if (n <= 96) return run_tiled<T, 2, kThreadCols ? 1 : 3, kThreadCols>(A, b, diag, x, B, n, m, s);
-  if (n <= 128) return run_tiled<T, 4, kThreadCols ? 1 : 4, kThreadCols>(A, b, diag, x, B, n, m, s);
-  if (n <= 176) return run_tiled<T, 4, kThreadCols ? 1 : 6, kThreadCols>(A, b, diag, x, B, n, m, s);
-  return (int)cudaErrorInvalidValue;
+  return by_order<kThreadCols>(n, [&](auto tpt, auto r) {
+    return run_tiled<T, decltype(tpt)::value, decltype(r)::value, kThreadCols>(A, b, diag, x, B,
+                                                                                n, m, s);
+  });
 }
 
 template <typename T>
@@ -253,6 +326,13 @@ int tiled(const void* A, const void* b, const void* diag, void* x, int B, int n,
   if (form == 0) return launch_tiled<T, false>(A, b, diag, x, B, n, m, s);
   if (form == 1) return launch_tiled<T, true>(A, b, diag, x, B, n, m, s);
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool kThreadCols>
+int occupancy(int n, int m, int* out) {
+  return by_order<kThreadCols>(n, [&](auto tpt, auto r) {
+    return occupancy_of<T, decltype(tpt)::value, decltype(r)::value, kThreadCols>(n, m, out);
+  });
 }
 
 struct Inst {
@@ -284,6 +364,19 @@ extern "C" int chol_solve_tiled_f32(const void* A, const void* b, const void* di
 extern "C" int chol_solve_tiled_f64(const void* A, const void* b, const void* diag, void* x,
                                     int B, int n, int m, int form, void* stream) {
   return tiled<double>(A, b, diag, x, B, n, m, form, stream);
+}
+
+// Kernel A's launch of (n, m) in form `form` (0 warp, 1 thread per column)
+// for elements of `dtype_bytes` (4 or 8): out = {threads, dynamic shared
+// memory bytes, rhs chunk width (0 in the warp form), resident blocks per
+// SM, registers per thread}. Returns a CUDA error code.
+extern "C" int chol_solve_tiled_occupancy(int n, int m, int dtype_bytes, int form, int* out) {
+  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype_bytes == 4)
+    return form ? occupancy<float, true>(n, m, out) : occupancy<float, false>(n, m, out);
+  if (dtype_bytes == 8)
+    return form ? occupancy<double, true>(n, m, out) : occupancy<double, false>(n, m, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Instantiation i of Kernel A: out = {registers per thread, local memory

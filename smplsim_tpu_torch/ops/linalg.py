@@ -33,9 +33,13 @@ in float32 the byte bound is 0.015 to 0.042 ms, while every kernel runs n to
     per system; C's tiled register factor with the diagonal shift added on
     the load and no store of L, then the solve by m: a warp per rhs column
     at m <= CHOL_SOLVE_WARP_MAX_M, a thread per column with 8-row register
-    blocks (D's wide form) above. `chol_solve_route` picks the form by
-    shape; above n = 176, or where the tiled form's shared memory does not
-    fit, it picks the column kernel.
+    blocks (D's wide form) above. The thread form solves its columns in
+    chunks of as many whole warps of column slots as fit in the shared
+    memory left after the factor, all in one launch on the one factor, so
+    every n <= 176 runs here whatever m (n = 159, m = 65 in float64 needs
+    233,088 B unchunked and takes two chunks of 64 columns); a chunked
+    solve equals the unchunked one bit for bit. `chol_solve_route` picks
+    the form by shape, and the column kernel above n = 176.
   * chol_solve.cu, the column kernel (chol_solve_kernel, A and E above
     n = 176, E with the factor stored and no right-hand side): one thread
     block per system, the matrix and the right-hand side in shared memory,
@@ -207,10 +211,15 @@ def _tile_threads(n: int, thread_cols: bool = False) -> int:
     return (-(-tiles // tpt) + 31) // 32 * 32
 
 
-def chol_solve_tiled_smem(n: int, m: int, itemsize: int, form: str) -> int | None:
-    """Bytes of shared memory Kernel A's tiled form takes for one (n, m)
-    system with the given solve form ("warp" or "thread"), or None where the
-    block would exceed 256 threads (chol_solve.cu's run_tiled)."""
+def chol_solve_tiled_layout(n: int, m: int, itemsize: int, form: str):
+    """(shared memory bytes, rhs chunk width) of Kernel A's tiled form for
+    one (n, m) system with the given solve form ("warp" or "thread"), or
+    None where the block would exceed 256 threads or not fit
+    (chol_solve.cu's run_tiled and tiled_smem). The thread form solves its
+    columns in chunks of the width given: as many whole warps of column
+    slots as fit beside the factor, at most m rounded up to the solve
+    threads (then one chunk: the unchunked solve), ceil(m / width) chunks.
+    The warp form has no slots: width 0."""
     thread = form == "thread"
     solve = min(256, max(32, -(-m // 32) * 32 if thread else 32 * min(m, 8)))
     mw = -(-m // solve) * solve if thread else 0
@@ -218,19 +227,27 @@ def chol_solve_tiled_smem(n: int, m: int, itemsize: int, form: str) -> int | Non
         return None
     n8 = -(-n // 8) * 8
     lp = max(_rowoff(n8), _tri(n)) if thread else _tri(n)
-    return itemsize * (16 + 16 * ((n + 3) // 4) + lp + n8 * mw)
+    base = 16 + 16 * ((n + 3) // 4) + lp
+    if itemsize * base > _SMEM_MAX:
+        return None
+    cw = 0
+    if thread:
+        cw = min(mw, (_SMEM_MAX // itemsize - base) // n8 // 32 * 32)
+        if cw < 32:
+            return None
+    return itemsize * (base + n8 * cw), cw
 
 
 def chol_solve_route(n: int, m: int, itemsize: int) -> str:
     """Which kernel `chol_solve` launches for (B,n,n) systems with m
     right-hand sides of `itemsize` bytes: "warp" or "thread" (Kernel A's
-    tiled factor, solved with a warp or a thread per rhs column), or
-    "column" (the column kernel) where the tiles do not hold n or the tiled
-    form's shared memory does not fit. A dispatch on shape only."""
+    tiled factor, solved with a warp or a thread per rhs column, the latter
+    in column chunks where the columns do not fit at once), or "column" (the
+    column kernel) where the tiles do not hold n (n > 176) or m = 0. A
+    dispatch on shape only."""
     if 1 <= m and n <= _CFS_MAX_N:
         form = "warp" if m <= CHOL_SOLVE_WARP_MAX_M else "thread"
-        smem = chol_solve_tiled_smem(n, m, itemsize, form)
-        if smem is not None and smem <= _SMEM_MAX:
+        if chol_solve_tiled_layout(n, m, itemsize, form) is not None:
             return form
     return "column"
 
@@ -395,3 +412,20 @@ def kernel_attributes() -> list[dict]:
                             **dict(zip(keys, (t, r))), num_regs=regs, local_bytes=local))
             i += 1
     return out
+
+
+def chol_solve_occupancy(n: int, m: int, itemsize: int) -> dict:
+    """What Kernel A's tiled launch of (n, m) systems of `itemsize` bytes
+    takes on this card, in the form `chol_solve_route` picks: threads,
+    dynamic shared memory, the rhs chunk width (0 in the warp form), the
+    blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    and the registers per thread."""
+    form = chol_solve_route(n, m, itemsize)
+    if form == "column":
+        raise ValueError(f"chol_solve_occupancy: n={n}, m={m} take the column kernel")
+    vals = (ctypes.c_int * 5)()
+    _build.check(_build.kernel("chol_solve.cu", "chol_solve_tiled_occupancy")(
+        n, m, itemsize, int(form == "thread"), vals), "chol_solve_tiled_occupancy")
+    return dict(n=n, m=m, dtype="float32" if itemsize == 4 else "float64", form=form,
+                threads=vals[0], smem_bytes=vals[1], chunk=vals[2], blocks_per_sm=vals[3],
+                num_regs=vals[4])

@@ -17,6 +17,9 @@ and the deepest MAX_SELF candidates are kept:
 Knobs (the JAX package's, same defaults): SMPLSIM_CC_KEEP, SMPLSIM_CB_KEEP,
 SMPLSIM_BB_KEEP. Every selection is `top_k`: descending, first index wins
 ties, NaN ranks last.
+
+The model may be shared or stacked: geom fields are read with the geom axis
+indexed from the right, (P,...) per pair or (B,P,...) per env and pair.
 """
 from __future__ import annotations
 
@@ -123,21 +126,21 @@ def _geom_world(model: RobotModel, kin: Kin, gidx: np.ndarray):
     """World center (B,P,3), rotation (B,P,3,3) and body (P,) of geoms."""
     body = np.asarray(model.geom_body, np.int64)[gidx]
     Rb = kin.xmat[:, body]
-    gpos = model.geom_pos[gidx].to(Rb.dtype)
+    gpos = model.geom_pos[..., gidx, :].to(Rb.dtype)
     pos = kin.xpos[:, body] + (Rb @ gpos[..., None])[..., 0]
-    Rg = Rb @ T.quat_to_matrix(model.geom_quat[gidx].to(Rb.dtype))
+    Rg = Rb @ T.quat_to_matrix(model.geom_quat[..., gidx, :].to(Rb.dtype))
     return pos, Rg, body
 
 
 def _segment(model: RobotModel, kin: Kin, gidx: np.ndarray):
-    """Capsule/sphere as segment ends (B,P,3) and radius (P,)."""
+    """Capsule/sphere as segment ends (B,P,3) and radius, (P,) or (B,P)."""
     pos, Rg, body = _geom_world(model, kin, gidx)
-    size = model.geom_size[gidx].to(pos.dtype)
+    size = model.geom_size[..., gidx, :].to(pos.dtype)
     is_cap = torch.as_tensor(
         [model.geom_type[g] == GEOM_CAPSULE for g in gidx], dtype=pos.dtype,
         device=pos.device)
-    half = (size[:, 1] * is_cap)[:, None] * Rg[..., :, 2]
-    return pos - half, pos + half, size[:, 0], body
+    half = (size[..., 1] * is_cap)[..., None] * Rg[..., :, 2]
+    return pos - half, pos + half, size[..., 0], body
 
 
 def _seg_seg_closest(p1, q1, p2, q2, eps=1e-12):
@@ -555,9 +558,9 @@ def _box_box(p1, R1, h1, p2, R2, h2, margin):
 
 
 def _combine(model, g1, g2, dtype):
-    """Pair friction (max) and margin (sum), (P,)."""
-    mu = torch.maximum(model.geom_friction[g1, 0], model.geom_friction[g2, 0])
-    margin = model.geom_margin[g1] + model.geom_margin[g2]
+    """Pair friction (max) and margin (sum), (P,) or (B,P)."""
+    mu = torch.maximum(model.geom_friction[..., g1, 0], model.geom_friction[..., g2, 0])
+    margin = model.geom_margin[..., g1] + model.geom_margin[..., g2]
     return mu.to(dtype), margin.to(dtype)
 
 
@@ -573,10 +576,11 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
                      contype, conaffinity, model.contact_excludes)
     out = {k: [] for k in ("dist", "pos", "normal", "b1", "b2", "mu", "margin")}
 
-    def per_pair(x):
-        """Static (P,...) -> (B,P,...)."""
+    def per_pair(x, nd: int = 1):
+        """(P,...) per pair or (B,P,...) per env and pair, nd dims per env,
+        -> (B,P,...)."""
         x = torch.as_tensor(x, device=dev)
-        return x.expand((B,) + x.shape)
+        return x.expand((B,) + x.shape[x.dim() - nd:])
 
     def cull(d_low, keep, tensors):
         _, idx, _ = top_k(-d_low, keep)
@@ -624,8 +628,8 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
         p1, q1, r1, bb1 = _segment(model, kin, g1)
         bpos, bR, bb2 = _geom_world(model, kin, g2)
         mu, margin = _combine(model, g1, g2, dtype)
-        half = model.geom_size[g2].to(dtype)
-        r1, half, mu, margin, bb1, bb2 = map(per_pair, (r1, half, mu, margin, bb1, bb2))
+        half = per_pair(model.geom_size[..., g2, :].to(dtype), 2)
+        r1, mu, margin, bb1, bb2 = map(per_pair, (r1, mu, margin, bb1, bb2))
         if len(g1) > cb_keep:
             d_low = (_norm(0.5 * (p1 + q1) - bpos) - 0.5 * _norm(q1 - p1) - r1
                      - _norm(half))
@@ -645,9 +649,9 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
         pos1, R1, bb1 = _geom_world(model, kin, g1)
         pos2, R2, bb2 = _geom_world(model, kin, g2)
         mu, margin = _combine(model, g1, g2, dtype)
-        h1 = model.geom_size[g1].to(dtype)
-        h2 = model.geom_size[g2].to(dtype)
-        h1, h2, mu, margin, bb1, bb2 = map(per_pair, (h1, h2, mu, margin, bb1, bb2))
+        h1 = per_pair(model.geom_size[..., g1, :].to(dtype), 2)
+        h2 = per_pair(model.geom_size[..., g2, :].to(dtype), 2)
+        mu, margin, bb1, bb2 = map(per_pair, (mu, margin, bb1, bb2))
         if len(g1) > bb_keep:
             d_low = _norm(pos1 - pos2) - (_norm(h1) + _norm(h2))
             pos1, R1, h1, pos2, R2, h2, mu, margin, bb1, bb2 = cull(

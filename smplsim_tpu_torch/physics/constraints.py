@@ -10,6 +10,10 @@ Row layout of the NEFC rows (for warm starts): [MAX_LIMITS limit rows,
 4 pyramid rows per floor contact, per self-contact, per projectile slot].
 The projectile slots hold the deepest contacts of free spheres (`spheres=`)
 with the humanoid's geoms; without spheres they are inactive.
+
+The model may be shared or stacked: its per-geom, per-body and per-dof
+fields are indexed from the right and gathered per env (`take`), its world
+scalars broadcast over each env's rows.
 """
 from __future__ import annotations
 
@@ -80,6 +84,11 @@ def _candidate_meta(geom_type: tuple[int, ...]):
             np.asarray(is_round, np.float64))
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx] per env: x (n,) shared or (B,n) per env, idx (B,K)."""
+    return x.expand(idx.shape[:1] + x.shape[-1:]).gather(1, idx)
+
+
 def impedance(solimp: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """MuJoCo impedance d(x), x = pos - margin (<= 0 when violated)."""
     dmin, dmax, width, mid, power = solimp.unbind(-1)
@@ -138,7 +147,8 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     gidx = np.arange(G)
     rad = sp_rad[:, :, None]                                   # (B,P,1)
     c = sp_pos[:, :, None, :]                                  # (B,P,1,3)
-    seg_p, seg_q, seg_r, _ = _segment(model, kin, gidx)        # (B,G,3), (G,)
+    seg_p, seg_q, seg_r, _ = _segment(model, kin, gidx)        # (B,G,3), (G,) or (B,G)
+    seg_r = seg_r[..., None, :]                                # over the spheres
     dseg = (seg_q - seg_p)[:, None]                            # (B,1,G,3)
     len2 = (dseg * dseg).sum(-1).clamp_min(1e-12)
     t = torch.clamp(((c - seg_p[:, None]) * dseg).sum(-1) / len2, 0.0, 1.0)
@@ -150,7 +160,7 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
 
     bpos, bRot, _ = _geom_world(model, kin, gidx)              # (B,G,3), (B,G,3,3)
     lp = (bRot[:, None].transpose(-1, -2) @ (c - bpos[:, None])[..., None])[..., 0]
-    sdf, n_out = _box_sdf(lp, model.geom_size.to(lp.dtype))
+    sdf, n_out = _box_sdf(lp, model.geom_size.to(lp.dtype)[..., None, :, :])
     dist_box = sdf - rad
     ploc = lp - (rad + 0.5 * dist_box)[..., None] * n_out
     pos_box = bpos[:, None] + (bRot[:, None] @ ploc[..., None])[..., 0]
@@ -160,7 +170,8 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     dist = torch.where(is_box, dist_box, dist_seg).reshape(B, P * G)
     pos = torch.where(is_box[..., None], pos_box, pos_seg).reshape(B, P * G, 3)
     nrm = torch.where(is_box[..., None], n_box, n_seg).reshape(B, P * G, 3)
-    margin = model.geom_margin.to(lp.dtype).repeat(P)          # (P*G,)
+    gm = model.geom_margin.to(lp.dtype)
+    margin = gm.repeat((1,) * (gm.dim() - 1) + (P,))           # (P*G,) or (B,P*G)
     cand = dist < margin
 
     val, idx, _ = top_k(torch.where(cand, -dist, torch.full_like(dist, -BIG)), MAX_PROJC)
@@ -169,7 +180,7 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     k_active = cand.gather(1, idx) & (val > -BIG / 2)
     k_sphere, k_geom = idx // G, idx % G
     k_body = torch.as_tensor(np.asarray(model.geom_body, np.int64), device=lp.device)[k_geom]
-    k_mu = model.geom_friction[:, 0].to(lp.dtype).clamp_min(1.0)[k_geom]
+    k_mu = take(model.geom_friction[..., 0].to(lp.dtype).clamp_min(1.0), k_geom)
     k_vel = sp_vel.gather(1, k_sphere[..., None].expand(B, MAX_PROJC, 3))
     k_inv = sp_inv.gather(1, k_sphere)
 
@@ -178,10 +189,10 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     W6 = _pyramid(k_norm, t1, t2, k_mu, take3(pos))             # (B,K,4,6)
     # a moving external side: the row velocity is relative to the sphere's
     vel = _rows(V, W6, k_body) - (W6[..., 3:] * k_vel[:, :, None, :]).sum(-1)
-    x = k_dist - margin[idx]
+    x = k_dist - take(margin, idx)
     imp = impedance(solimp, x)
-    aref = -cB * vel - (cK * imp * x)[..., None]
-    diag = ((model.body_invweight0[:, 0].to(lp.dtype)[k_body] + k_inv)
+    aref = -cB[..., None] * vel - (cK * imp * x)[..., None]
+    diag = ((take(model.body_invweight0[..., 0].to(lp.dtype), k_body) + k_inv)
             * 2.0 * k_mu ** 2 * (1.0 + k_mu ** 2))
     R = ((1.0 - imp) / imp * diag)[..., None].expand(-1, -1, 4)
     sphere = torch.where(k_active, k_sphere, torch.full_like(k_sphere, -1))
@@ -197,13 +208,14 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     dtype, dev = qpos.dtype, qpos.device
     B, nv = qvel.shape
     f = lambda x: x.to(dtype)
-    solimp, solref = f(model.floor_solimp), f(model.floor_solref)
+    # world scalars as (1,) or (B,1), against each env's rows
+    solimp, solref = f(model.floor_solimp)[..., None, :], f(model.floor_solref)[..., None, :]
     cK, cB = solref_kb(solref, solimp)
     V = body_twists(model, kin, qvel)                          # (B,J,6)
 
     # ---------------- joint limits ----------------
     hinge = qpos[:, 7:]
-    lo, hi = f(model.jnt_range[:, 0]), f(model.jnt_range[:, 1])
+    lo, hi = f(model.jnt_range[..., 0]), f(model.jnt_range[..., 1])
     dist_lo, dist_hi = hinge - lo, hi - hinge
     lpos = torch.minimum(dist_lo, dist_hi)
     lsign = torch.where(dist_lo < dist_hi, 1.0, -1.0).to(dtype)
@@ -217,7 +229,7 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     l_imp = impedance(solimp, l_pos)
     l_vel = l_sign * qvel[:, 6:].gather(1, lidx)
     l_aref = -cB * l_vel - cK * l_imp * l_pos
-    l_R = (1.0 - l_imp) / l_imp * f(model.dof_invweight0[6:])[lidx]
+    l_R = (1.0 - l_imp) / l_imp * take(f(model.dof_invweight0[..., 6:]), lidx)
     l_J = torch.nn.functional.one_hot(lidx + 6, nv).to(dtype) * l_sign[..., None]
 
     # ---------------- floor contacts ----------------
@@ -225,20 +237,20 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     cgeom = torch.as_tensor(cgeom_np, device=dev)
     cbody_np = np.asarray(model.geom_body, np.int64)[cgeom_np]
     cbody = torch.as_tensor(cbody_np, device=dev)
-    g_size = f(model.geom_size)[cgeom]
+    g_size = f(model.geom_size)[..., cgeom, :]
     is_cap = torch.as_tensor([model.geom_type[g] == GEOM_CAPSULE for g in cgeom_np],
                              device=dev)
     # capsules keep their half-length in size[1] and run along geom-frame z
-    size_eff = torch.cat([g_size[:, :2], torch.where(is_cap, g_size[:, 1], g_size[:, 2])[:, None]],
-                         dim=1)
-    g_quat = f(model.geom_quat)[cgeom]
-    offset = f(model.geom_pos)[cgeom] + T.quat_rotate(
+    size_eff = torch.cat([g_size[..., :2],
+                          torch.where(is_cap, g_size[..., 1], g_size[..., 2])[..., None]], dim=-1)
+    g_quat = f(model.geom_quat)[..., cgeom, :]
+    offset = f(model.geom_pos)[..., cgeom, :] + T.quat_rotate(
         g_quat, torch.as_tensor(sign_np, dtype=dtype, device=dev) * size_eff)
     R_b = kin.xmat[:, cbody]                                   # (B,P,3,3)
     p_world = kin.xpos[:, cbody] + (R_b @ offset[..., None])[..., 0]
-    radius = torch.as_tensor(round_np, dtype=dtype, device=dev) * g_size[:, 0]
+    radius = torch.as_tensor(round_np, dtype=dtype, device=dev) * g_size[..., 0]
     dist = p_world[..., 2] - radius
-    incmargin = f(model.geom_margin)[cgeom] + f(model.floor_margin)
+    incmargin = f(model.geom_margin)[..., cgeom] + f(model.floor_margin)[..., None]
     cand_active = dist < incmargin
     con_pos = torch.stack([p_world[..., 0], p_world[..., 1],
                            p_world[..., 2] - radius - 0.5 * dist], dim=-1)
@@ -252,11 +264,12 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     c_dist = dist.gather(1, cidx)
     c_pos = con_pos.gather(1, cidx[..., None].expand(cidx.shape + (3,)))
     c_active = cand_active.gather(1, cidx) & (cval > -BIG / 2)
-    c_margin = incmargin[cidx]
+    c_margin = take(incmargin, cidx)
     c_cap = is_cap[cidx]
     c_axis = axis_w.gather(1, cidx[..., None].expand(cidx.shape + (3,)))
     c_body = cbody[cidx]
-    mu = torch.maximum(f(model.geom_friction)[cgeom, 0], f(model.floor_friction)[0])[cidx]
+    mu = take(torch.maximum(f(model.geom_friction)[..., cgeom, 0],
+                            f(model.floor_friction)[..., 0:1]), cidx)
 
     # tangent frame on the plane: plane-box/sphere use mju_makeFrame(+z)
     # = (0,1,0), (-1,0,0); plane-capsule aligns t1 with the projected axis
@@ -271,9 +284,9 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     c_vel = _rows(V, W6, c_body)
     c_x = c_dist - c_margin
     c_imp = impedance(solimp, c_x)
-    c_aref = -cB * c_vel - (cK * c_imp * c_x)[..., None]
+    c_aref = -cB[..., None] * c_vel - (cK * c_imp * c_x)[..., None]
     mu_hat = mu.clamp_min(1.0)
-    diag_approx = (f(model.body_invweight0[:, 0])[c_body]
+    diag_approx = (take(f(model.body_invweight0[..., 0]), c_body)
                    * 2.0 * mu_hat ** 2 * (1.0 + mu_hat ** 2))
     c_R = ((1.0 - c_imp) / c_imp * diag_approx)[..., None].expand(-1, -1, 4)
 
@@ -284,10 +297,10 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     s_vel = _rows(V, W6_s, sc.body2, sc.body1)
     s_x = sc.dist - sc.margin
     s_imp = impedance(solimp, s_x)
-    s_aref = -cB * s_vel - (cK * s_imp * s_x)[..., None]
+    s_aref = -cB[..., None] * s_vel - (cK * s_imp * s_x)[..., None]
     s_muhat = sc.friction.clamp_min(1.0)
-    invw = f(model.body_invweight0[:, 0])
-    s_diag = (invw[sc.body1] + invw[sc.body2]) * 2.0 * s_muhat ** 2 * (1.0 + s_muhat ** 2)
+    invw = f(model.body_invweight0[..., 0])
+    s_diag = (take(invw, sc.body1) + take(invw, sc.body2)) * 2.0 * s_muhat ** 2 * (1.0 + s_muhat ** 2)
     s_R = ((1.0 - s_imp) / s_imp * s_diag)[..., None].expand(-1, -1, 4)
 
     # ---------------- projectile (free sphere) contacts ----------------

@@ -42,9 +42,10 @@ def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target,
     """The stable-PD solve's right-hand side (B,nv,1), its diagonal shift
     dt*kd*kd_scale (B,nv) and the hinge position error (B,nu)."""
     B, nv = qvel.shape
-    dt = model.timestep
+    dt = model.timestep[..., None]
     z6 = torch.zeros((B, 6), dtype=qvel.dtype, device=qvel.device)
-    kd = torch.cat([z6[0], model.jkd * kd_scale])
+    jkd = model.jkd * kd_scale
+    kd = torch.cat([jkd.new_zeros(jkd.shape[:-1] + (6,)), jkd], -1)
     qerr = qpos[:, 7:] + qvel[:, 6:] * dt - target
     rhs = -C_prev - torch.cat([z6, model.jkp * kp_scale * qerr], 1) - kd * qvel
     return rhs[..., None], (kd * dt).expand(B, nv).contiguous(), qerr
@@ -52,7 +53,7 @@ def stable_pd_system(model: RobotModel, C_prev, qpos, qvel, target,
 
 def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc, kp_scale, kd_scale):
     tau = (-(model.jkp * kp_scale) * qerr
-           - (model.jkd * kd_scale) * (qvel[:, 6:] + qacc[:, 6:] * model.timestep))
+           - (model.jkd * kd_scale) * (qvel[:, 6:] + qacc[:, 6:] * model.timestep[..., None]))
     return torch.clamp(tau, -model.torque_lim, model.torque_lim)
 
 
@@ -105,7 +106,7 @@ def simple_pid_torque(model: RobotModel, state: PIDState, qpos, action, jki=None
     """SimplePID law: returns (tau (B,nu), state'). On an env's first call
     (not primed) the input and error differences are zero; the output and
     the integral are clamped to torque_lim (anti-windup)."""
-    dt = model.timestep
+    dt = model.timestep[..., None]
     lim = model.torque_lim
     kp, kd = model.jkp, model.jkd
     ki = torch.zeros_like(kp) if jki is None else jki
@@ -130,7 +131,7 @@ def pid_torque(model: RobotModel, qpos, qvel, target, integral, jki=None):
     """PIDController law: returns (tau (B,nu), integral')."""
     lim = model.torque_lim
     err = qpos[:, 7:] - target
-    integral = torch.clamp(integral + err * model.timestep, -lim, lim)
+    integral = torch.clamp(integral + err * model.timestep[..., None], -lim, lim)
     ki = torch.zeros_like(model.jkp) if jki is None else jki
     tau = -model.jkp * err - model.jkd * qvel[:, 6:] - ki * integral
     return torch.clamp(tau, -lim, lim), integral

@@ -48,7 +48,7 @@ def mass_matrix(model: RobotModel, kin: Kin) -> torch.Tensor:
     M = anc.T * G + anc * G.transpose(-1, -2) - eye * Gd[:, None, :]
     # the transposed operands leave M column-major; the solve kernels take
     # row-major (M is symmetric, so this only moves memory)
-    return (M + eye * model.armature.to(dtype)).contiguous()
+    return (M + eye * model.armature.to(dtype)[..., None, :]).contiguous()
 
 
 def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
@@ -65,7 +65,7 @@ def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor
     I_O = algebra.spatial_inertia(mass, kin.com, kin.inertia_w)
     IV = (I_O @ V[..., None])[..., 0]
     f = (I_O @ a_body[..., None])[..., 0] + algebra.force_cross(V, IV)
-    mg = mass[:, None] * model.gravity.to(dtype)[None, :]        # (J,3)
+    mg = mass[..., :, None] * model.gravity.to(dtype)[..., None, :]   # (J,3) or (B,J,3)
     f = f - torch.cat([algebra.cross(kin.com, mg), mg.expand_as(kin.com)], dim=-1)
     fC = _mask(model, "dof_subtree_body", S) @ f                 # (B,nv,6)
     return (S * fC).sum(-1)

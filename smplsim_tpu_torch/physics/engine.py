@@ -18,14 +18,17 @@ the next control step to continue an episode, its last entry warm-starting
 the next contact solve; a 2-tuple (M, C) starts cold, None primes with a
 fresh forward pass (the reference's mj_forward at reset).
 
+Every entry point takes a shared or a stacked model (models/spec.py); on a
+stacked model of N rows the batch is N and row i runs body i.
+
 Forward-mode AD (torch.autograd.forward_ad): when any tensor input of a
-uhc_pd control step carries a tangent, it runs the per-env reference form
-of the loop (substep.control_loop with reference=True; the JAX package's
-engine.py::_uhc_core_ref, which its custom_jvp differentiates) instead of
-the batched spine: stable-PD and the smooth solve through
-`cho_factor_solve`, the Gram-form contact solve, and the derivative rules
-of physics/linalg.py and ops/qp.py, with ext_force and the projectiles as in
-the spine. The spine's kernels raise on a
+uhc_pd control step, the model's fields included, carries a tangent, it
+runs the per-env reference form of the loop (substep.control_loop with
+reference=True; the JAX package's engine.py::_uhc_core_ref, which its
+custom_jvp differentiates) instead of the batched spine: stable-PD and the
+smooth solve through `cho_factor_solve`, the Gram-form contact solve, and
+the derivative rules of physics/linalg.py and ops/qp.py, with ext_force
+and the projectiles as in the spine. The spine's kernels raise on a
 tangent. The torque and default modes run the per-env
 composition already. Reverse mode is not implemented.
 """
@@ -36,7 +39,7 @@ import dataclasses
 import torch
 from torch.autograd import forward_ad
 
-from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.models.spec import ARRAY_FIELDS, RobotModel
 from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinematics, solver
 from smplsim_tpu_torch.physics.control import pd_target_from_action, torque_ctrl
 from smplsim_tpu_torch.physics.substep import _bad, control_loop
@@ -68,7 +71,7 @@ class StepInfo:
 
 def init_state(model: RobotModel, batch: int = 1) -> PhysicsState:
     """`batch` copies of the model's reference pose at rest."""
-    qpos = model.qpos0[None].expand(batch, -1).clone()
+    qpos = model.qpos0.expand(batch, model.nq).clone()
     return PhysicsState(qpos, torch.zeros((batch, model.nv), dtype=qpos.dtype,
                                           device=qpos.device))
 
@@ -102,10 +105,11 @@ def pd_cache(model: RobotModel, state: PhysicsState):
 
 
 def reset_reference(model: RobotModel):
-    """(qpos0, qvel0, M, C), each with a batch dim of 1: the target of the
-    bad-state reset. Compute once per model."""
-    q0 = model.qpos0[None]
-    v0 = torch.zeros((1, model.nv), dtype=q0.dtype, device=q0.device)
+    """(qpos0, qvel0, M, C): the target of the bad-state reset, with a batch
+    dim of 1 for a shared model and of N for a stacked one (each body's
+    own). Compute once per model."""
+    q0 = model.qpos0.reshape(-1, model.nq)
+    v0 = torch.zeros((q0.shape[0], model.nv), dtype=q0.dtype, device=q0.device)
     M, C = pd_cache(model, PhysicsState(q0, v0))
     return q0, v0, M, C
 
@@ -148,8 +152,10 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
     K = None if qp_rows is None else min(qp_rows, constraints.NEFC)
     target = pd_target_from_action(model, action)
     hooks = [t for t in (ext_force, *(proj or ())) if t is not None]
+    fields = [getattr(model, f) for f in ARRAY_FIELDS]
     tangent = any(forward_ad.unpack_dual(t).tangent is not None
-                  for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref, *hooks))
+                  for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref, *hooks,
+                            *fields))
     out = control_loop(
         model, state.qpos, state.qvel, M0, C0, f_w0, target, reset_ref,
         control_freq_inv, qp_iters, K, qp_tol, keeps, reference=tangent,

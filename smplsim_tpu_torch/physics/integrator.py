@@ -10,7 +10,10 @@ from smplsim_tpu_torch import transforms as T
 
 def euler_step(qpos: torch.Tensor, qvel: torch.Tensor, qacc: torch.Tensor, dt):
     """Velocity first, then position with the new velocity (the free root's
-    quaternion advances by its body-frame angular velocity)."""
+    quaternion advances by its body-frame angular velocity). dt is the
+    model's timestep: a float, a () tensor, or (B,) of a stacked model."""
+    if isinstance(dt, torch.Tensor):
+        dt = dt[..., None]
     qvel_new = qvel + dt * qacc
     pos = qpos[:, 0:3] + dt * qvel_new[:, 0:3]
     quat = T.quat_integrate(qpos[:, 3:7], qvel_new[:, 3:6], dt)

@@ -5,6 +5,15 @@ qpos (B,nq): [0:3] root position, [3:7] root quaternion (wxyz), then the
 intrinsic-XYZ hinge triple of each body. qvel (B,nv): [0:3] world linear
 velocity of the root frame origin, [3:6] root angular velocity in the root
 BODY frame, then hinge rates.
+
+The model may be shared or stacked (models/spec.py): its fields are read
+with the body axis indexed from the right. A shared model's per-body
+offsets and rotations multiply every env's parent frame in one product
+(BLAS gemv / gemm, as before stacking existed); a stacked model's take a
+batched product per env, whose rounding differs from BLAS's in the last
+bit, so FK of a stacked model of identical rows equals the shared model's
+to a few ulps, not bit for bit (everything downstream of FK reads the
+fields identically in both forms).
 """
 from __future__ import annotations
 
@@ -13,7 +22,7 @@ import dataclasses
 import torch
 
 from smplsim_tpu_torch import transforms as T
-from smplsim_tpu_torch.models.spec import RobotModel
+from smplsim_tpu_torch.models.spec import RobotModel, check_batch
 from smplsim_tpu_torch.physics.algebra import cross
 
 
@@ -30,8 +39,9 @@ def fk(model: RobotModel, qpos: torch.Tensor) -> Kin:
     parents = model.parents
     J = len(parents)
     B = qpos.shape[0]
+    check_batch(model, B)
     dtype = qpos.dtype
-    body_R_local = T.quat_to_matrix(model.body_quat.to(dtype))
+    body_R_local = T.quat_to_matrix(model.body_quat.to(dtype))   # (J,3,3) or (B,J,3,3)
     body_pos = model.body_pos.to(dtype)
 
     root_R = T.quat_to_matrix(qpos[:, 3:7])
@@ -44,8 +54,19 @@ def fk(model: RobotModel, qpos: torch.Tensor) -> Kin:
     for b in range(1, J):
         p = parents[b]
         Rp = xmat[p]
-        pos = xpos[p] + Rp @ body_pos[b]
-        F0 = Rp @ body_R_local[b]                 # frame before the hinge stack
+        # Two forms of one product. A stacked model takes batched products
+        # over its (B,) fields; the shared model keeps its gemv/gemm, whose
+        # rounding the narrowphase reads: with the batched product for both,
+        # a deep capsule-box contact of
+        # tests/test_torch_modules.py::test_self_contacts_match_wide_keeps[2]
+        # flips against JAX. So stacked copies of one body agree with the
+        # shared model to a few ulps here, not bit for bit.
+        if model.stacked:
+            pos = xpos[p] + (Rp @ body_pos[:, b, :, None])[..., 0]
+            F0 = Rp @ body_R_local[:, b]          # frame before the hinge stack
+        else:
+            pos = xpos[p] + Rp @ body_pos[b]
+            F0 = Rp @ body_R_local[b]
         i = b - 1
         cx, cy, cz = ca[:, i, 0, None], ca[:, i, 1, None], ca[:, i, 2, None]
         sx, sy, sz = sa[:, i, 0, None], sa[:, i, 1, None], sa[:, i, 2, None]
@@ -84,7 +105,7 @@ def body_quats(model: RobotModel, qpos: torch.Tensor) -> torch.Tensor:
     B = qpos.shape[0]
     hinge = qpos[:, 7:].reshape(B, J - 1, 3)
     frame = torch.cat([qpos[:, None, 3:7],
-                       model.body_quat[1:].to(qpos.dtype).expand(B, J - 1, 4)], dim=1)
+                       model.body_quat[..., 1:, :].to(qpos.dtype).expand(B, J - 1, 4)], dim=1)
     ident = torch.zeros(B, 1, 4, dtype=qpos.dtype, device=qpos.device)
     ident[..., 0] = 1.0
     local = T.quat_mul(frame, torch.cat([ident, T.euler_xyz_to_quat(hinge)], dim=1))

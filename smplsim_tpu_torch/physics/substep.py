@@ -59,8 +59,8 @@ def _sphere_step(model, efc, efc_force, p_pos, p_vel, p_rad, p_inv):
     onehot = (efc.proj_sphere[:, :, None]
               == torch.arange(P, device=p_pos.device)).to(p_pos.dtype)  # (B,K,P)
     F = (onehot[..., None] * F_slot[:, :, None, :]).sum(1)               # (B,P,3)
-    dt = model.timestep
-    vel = p_vel + dt * (p_inv[..., None] * F + model.gravity)
+    dt = model.timestep[..., None, None]
+    vel = p_vel + dt * (p_inv[..., None] * F + model.gravity[..., None, :])
     pos = p_pos + dt * vel
     below = pos[..., 2] < p_rad
     vz = torch.where(below, vel[..., 2].clamp_min(0.0), vel[..., 2])

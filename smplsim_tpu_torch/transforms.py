@@ -119,3 +119,26 @@ def quat_to_tan_norm(q: torch.Tensor) -> torch.Tensor:
     tan = quat_rotate(q, _unit(q.shape[:-1], 0, q))
     norm = quat_rotate(q, _unit(q.shape[:-1], 2, q))
     return torch.cat([tan, norm], dim=-1)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> (...,4) wxyz, w >= 0: of the four Shepperd candidates the
+    one with the largest pivot."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tw = 1.0 + m00 + m11 + m22
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+
+    def cand(t, *vals):
+        return torch.stack(vals, -1) / (2.0 * torch.sqrt(t.clamp_min(1e-18)))[..., None]
+
+    cands = torch.stack([cand(tw, tw, m21 - m12, m02 - m20, m10 - m01),
+                         cand(tx, m21 - m12, tx, m01 + m10, m02 + m20),
+                         cand(ty, m02 - m20, m01 + m10, ty, m12 + m21),
+                         cand(tz, m10 - m01, m02 + m20, m12 + m21, tz)], dim=-2)
+    idx = torch.stack([tw, tx, ty, tz], -1).argmax(-1)
+    q = cands.gather(-2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return normalize(torch.where(q[..., :1] < 0, -q, q))

@@ -176,16 +176,19 @@ def test_chol_solve_route_boundaries():
     assert route(176, 1, 8) == "warp" and route(177, 1, 4) == "column"
     assert route(75, 0, 4) == "column"
     # a right-hand side whose columns do not fit the tiled form's shared
-    # memory goes to the column kernel, by shape
-    assert linalg.chol_solve_tiled_smem(32, 800, 4, "thread") <= linalg._SMEM_MAX
+    # memory at once is solved in chunks of column slots, in the same launch
+    assert linalg.chol_solve_tiled_layout(32, 800, 4, "thread")[0] <= linalg._SMEM_MAX
     assert route(32, 800, 4) == "thread"
-    assert linalg.chol_solve_tiled_smem(32, 800, 8, "thread") > linalg._SMEM_MAX
-    assert route(32, 800, 8) == "column"
+    assert linalg.chol_solve_tiled_layout(32, 800, 4, "thread")[1] == 1024
+    smem, chunk = linalg.chol_solve_tiled_layout(32, 800, 8, "thread")
+    assert smem <= linalg._SMEM_MAX and chunk % 32 == 0 and 800 <= chunk < 1024
+    assert route(32, 800, 8) == "thread"
     # the shared memory the kernel takes at the main path's shapes (float32):
     # the factor's scratch, the triangle, and at m = 33 the row-aligned
     # triangle and the columns of y and x
-    assert linalg.chol_solve_tiled_smem(75, 1, 4, "warp") == 4 * (16 + 16 * 19 + 2850)
-    assert linalg.chol_solve_tiled_smem(75, 33, 4, "thread") == 4 * (16 + 16 * 19 + 3360 + 80 * 64)
+    assert linalg.chol_solve_tiled_layout(75, 1, 4, "warp")[0] == 4 * (16 + 16 * 19 + 2850)
+    assert (linalg.chol_solve_tiled_layout(75, 33, 4, "thread")[0]
+            == 4 * (16 + 16 * 19 + 3360 + 80 * 64))
 
 
 def test_newton_qp_route_boundaries():

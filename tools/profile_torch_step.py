@@ -4,6 +4,7 @@ spends its time on the GPU.
     python3 tools/profile_torch_step.py [--batch 4096] [--steps 2]
                                         [--control-mode uhc_pd|torque]
                                         [--task speed|getup]
+                                        [--body default|beta|smplx]
     python3 tools/profile_torch_step.py --jacobian
 
 Default: runs HumanoidSpeed at the main-path operating point (float32, 15
@@ -12,7 +13,10 @@ the given control mode (uniform random actions in [-1, 1]), warms up three
 control steps, times `--steps` step_autoreset calls, then records as many
 again with torch.profiler. `--task getup` runs HumanoidGetup instead, with
 its per-reset Fall init: each step_autoreset is 4 control steps (the 3 of
-the Fall, computed for every env, and the step).
+the Fall, computed for every env, and the step). `--body` picks the
+humanoid: the baked one, 64 β bodies tiled over the batch (chip_smoke.py
+phase 20's) or the SMPLX humanoid (phase 21's), both built from the
+synthetic bodies of tests/_torch_synthetic_body.py.
 
 --jacobian: the derivative path at chip_smoke.py phase 9's operating point,
 in float32 and then float64: one Jacobian evaluation (control.jacobians,
@@ -41,7 +45,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
 CFI = 15
@@ -113,11 +118,36 @@ def measure(run, reps: int, unit: str) -> dict:
                                          calls=e.count / reps) for e in top[:10]]}
 
 
-def control_step_profile(args, card, dev) -> dict:
-    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed, SpeedConfig
+def body_model(body: str, batch: int, dev):
+    """The float32 humanoid of `--body` on the card."""
     from smplsim_tpu_torch.models import registry
 
-    model = registry.default_humanoid(torch.float32)
+    if body == "default":
+        return registry.default_humanoid(torch.float32)
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_synthetic_body import make_synthetic_body
+
+    from smplsim_tpu_torch.body_model import SMPLParser
+    from smplsim_tpu_torch.models import stack_models, tile_model
+    from smplsim_tpu_torch.models.builder import RobotConfig, build_robot_model
+
+    if body == "smplx":
+        parser = SMPLParser(data=make_synthetic_body(np.random.default_rng(1), "smplx"),
+                            model_type="smplx")
+        return build_robot_model(parser, cfg=RobotConfig(model="smplx"), device=dev)[0]
+    parser = SMPLParser(data=make_synthetic_body(np.random.RandomState(0), "smpl"))
+    rng = np.random.RandomState(11)
+    bodies = [build_robot_model(parser, betas=rng.randn(1, 10) * 0.8, device=dev)[0]
+              for _ in range(64)]
+    return tile_model(stack_models(bodies), batch)
+
+
+def control_step_profile(args, card, dev) -> dict:
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed, SpeedConfig
+
+    model = body_model(args.body, args.batch, dev)
     if args.task == "getup":
         env = HumanoidGetup(model, GetupConfig(control_mode=args.control_mode), **QP)
     else:
@@ -130,10 +160,12 @@ def control_step_profile(args, card, dev) -> dict:
         box["state"] = env.step_autoreset(box["state"], act())
     for _ in range(3):
         step()
-    print(f"card: {card}; {args.task} task, {args.control_mode} control, batch {args.batch}, "
-          f"{args.steps} step_autoreset calls profiled")
+    print(f"card: {card}; {args.task} task, {args.body} body (nv {model.nv}), "
+          f"{args.control_mode} control, batch {args.batch}, {args.steps} step_autoreset calls "
+          "profiled")
     out = measure(step, args.steps, "step_autoreset" if args.task == "getup" else "control step")
-    return dict(task=args.task, control_mode=args.control_mode, batch=args.batch, **out)
+    return dict(task=args.task, body=args.body, control_mode=args.control_mode,
+                batch=args.batch, **out)
 
 
 def jacobian_profile(dtype, card, dev) -> dict:
@@ -173,6 +205,8 @@ def main() -> None:
     ap.add_argument("--control-mode", default="uhc_pd", choices=("uhc_pd", "torque"))
     ap.add_argument("--task", default="speed", choices=("speed", "getup"),
                     help="HumanoidSpeed, or HumanoidGetup with its per-reset Fall init")
+    ap.add_argument("--body", default="default", choices=("default", "beta", "smplx"),
+                    help="the baked humanoid, 64 β bodies tiled over the batch, or SMPLX")
     ap.add_argument("--jacobian", action="store_true",
                     help="profile one warm Jacobian evaluation in float32 and float64")
     args = ap.parse_args()
