@@ -15,8 +15,10 @@ Phases (any failure exits non-zero):
      taken from a real substep of the main path (B=4096 HumanoidSpeed envs
      after a few control steps): Kernel A chol_solve at m=1 + diag
      (stable-PD) and m=33 (smooth + Delassus), Kernel B newton_qp at K=32,
-     16 iterations, tol 1e-4; float64 elementwise, float32 by residual,
-     objective and KKT; times of kernel, plain version and library call;
+     16 iterations, tol 1e-4; float64 elementwise (a system where both
+     meet the tolerance yet part by more than 1e-9 held by the distance
+     that tolerance allows two solutions, `tolerance_spread`), float32 by
+     residual, objective and KKT; times of kernel, plain version and library call;
      the control: the column kernel (chol_solve.cu's chol_solve_f32) and
      both solve forms of A's tiled kernel, and B's block-per-system form,
      timed through their raw entry points on the same inputs (failing
@@ -188,10 +190,40 @@ Phases (any failure exits non-zero):
      library time; one float64 control step at the package's default
      QP (K = 64: A at m = 65 in two chunks) on 64 envs from a reset, card
      vs CPU within 1e-9, and A's chunked launch timed on its systems.
+ 22. the articulated-body route (SMPLSIM_ABA=1, physics/substep.py): the
+     speed path of phase 3 on the route and on the dense route, each 16
+     step_autoresets from one reset under one action draw (a generator
+     seeded 22 for both): exactly 1 chol_solve + 15 newton_qp per control
+     step on the route (30 + 15 on the dense one), env-steps/s of both,
+     overflow and stalled shares; card vs CPU on the route, 16 envs, 2
+     control steps of half-scale actions, qpos within 5e-3; on a real
+     substep after 3 control steps, physics/aba.py's mass_solve against
+     Kernel A on the same (M + diag, rhs) at m = 1 + diag and m = 33: the
+     float64 relative residual against M + diag within ABA_RESIDUAL (the
+     envs with |qvel| > 1e3 or M + diag not SPD left out, counted), the
+     events ms, device busy ms and device ops of one elimination beside
+     A's ms;
+ 23. NvHumanoid (obs v2 with 5 past steps, freeze_hand, an impulse every 4
+     control steps, 2 projectiles thrown every 8) through GymVectEnv at
+     4096 envs, 16 steps of numpy actions: 30 + 15 launches per step,
+     finite observations of width obs_max_v2_size(24, 6), the termination
+     share, env-steps/s with the facade's host copies; card vs CPU, 16
+     envs, 2 control steps, the impulse and throw draws made on the card
+     and fed to both: qpos and sphere positions within 5e-3;
+ 24. DomainRandEnv over HumanoidSpeed at 4096 envs, every physical field
+     and both noises randomized, frequency 1: 16 step_autoresets at 30 + 15
+     launches each, the redraw count, env-steps/s; Kernels A and B against
+     their plain versions on a real domain-randomized substep after 3
+     control steps, as in phase 20; card vs CPU on one 16-env realization,
+     2 control steps, qpos within 5e-3;
+ 25. HumanoidMove at 180 Hz (the model's timestep set to 1/180), 6 substeps
+     per control step, 4096 envs, 16 step_autoresets: 12 chol_solve + 6
+     newton_qp per step, every reward finite in [0, 1], env-steps/s.
 
 Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
-19's plan, 20's and 21's runs and 21's float64 step each set every launch
-count to 0 just before and read them just after. The third-to-last line is the `kernels` JSON object, the
+19's plan, 20's and 21's runs, 21's float64 step, 22's two runs, 23's,
+24's and 25's runs each set every launch count to 0 just before and read
+them just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -232,6 +264,10 @@ SMPLX_STEPS = 8
 X64_ENVS = 64
 # phases 20-21 hold A and B on the envs below this |qvel| (held_inputs)
 WILD_QVEL = 1e3
+# phase 22: the float32 elimination's relative residual against M + diag,
+# the bound of Kernel A's float32 checks (on the CPU, 128 envs after 3
+# control steps: 2.6e-07 at m = 1 + diag, 1.0e-07 at m = 33; A 1.6e-08)
+ABA_RESIDUAL = 1e-5
 # phase 3's solver health with A's column kernel and B's block form, same
 # seed, draw and card: a kernel change that moves them moves the operating
 # point
@@ -404,6 +440,32 @@ def objective_where_converged(tag, rel_o, conv_p, conv_k, its, it, ok) -> None:
           "more than 1e-4 stopped at the iteration cap in at least one solver")
     check(o_both <= 1e-4, f"{tag}newton_qp float32 objective within {o_both:.3e} <= 1e-4 where "
                           "both meet the tolerance")
+
+
+def tolerance_spread(A, b, a, fk, fp, tol, parted) -> bool:
+    """True if, on each system of `parted`, two answers that both meet the
+    KKT tolerance tau = tol (1 + max|b|) lie within the distance that
+    tolerance allows two solutions of the system's LCP over its active
+    rows: |fk - fp|_2 <= 2 sqrt(k) tau (1 + |A_aa|_2) / lambda_min(A_aa)
+    (the natural-residual error bound of a strongly monotone LCP, each
+    answer within (1 + L) / mu of the |min(f, g)| residual from the
+    solution). On ill-conditioned float64 systems, rare on the main path
+    and more frequent on domain-randomized inputs (1 of 1,639 converged
+    systems parted by 3.5e-9 in one chip run), two converged answers may
+    part by more than 1e-9 with both correct to the tolerance: this shows
+    it for each such system. Prints each one."""
+    ok = True
+    for i in parted.nonzero().flatten().tolist():
+        act = a[i] > 0.5
+        ev = torch.linalg.eigvalsh(A[i][act][:, act])
+        tau = tol * (1.0 + b[i].abs().max())
+        bound = (2.0 * math.sqrt(int(act.sum())) * tau * (1.0 + ev[-1]) / ev[0]).item()
+        gap = (fk[i] - fp[i]).norm().item()
+        ok &= ev[0].item() > 0 and gap <= bound
+        print(f"    system {i}: |k-p| {gap:.3e} against the tolerance's bound {bound:.3e} "
+              f"(k = {int(act.sum())} active rows, eigenvalues {ev[0].item():.3e} to "
+              f"{ev[-1].item():.3e})", flush=True)
+    return ok
 
 
 def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
@@ -862,9 +924,12 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
                   f"1e-12 within {it} iterations in both; {int((conv_p ^ conv_k).sum())} in "
                   f"one only; |k-p|/(1+|p|) max {worst(both):.3e} over the first, "
                   f"{worst(~both):.3e} over the rest", flush=True)
-            check(worst(both) <= 1e-9,
+            parted = both & (rel > 1e-9)
+            within = tolerance_spread(A, b, a, fk, fp, tol, parted)
+            check(worst(both & ~parted) <= 1e-9 and within,
                   f"newton_qp float64 vs plain elementwise <= 1e-9 where both converge "
-                  f"({int(both.sum())} systems)")
+                  f"({int(both.sum())} systems; {int(parted.sum())} part by more, each "
+                  "within the distance its KKT tolerance allows two solutions)")
             check(orel <= 1e-12, f"{tag}newton_qp float64 objective within {orel:.3e} <= 1e-12")
         elif converged_only:
             objective_where_converged(tag, (ok_ - op_).abs() / op_.abs().clamp_min(1e-12),
@@ -911,6 +976,7 @@ def env_run(env_, n_steps, per_auto, counted, action, gen):
         fn.launches = 0
     ov = stl = 0.0
     nact = torch.zeros((), dtype=torch.int32, device=st.cur_t.device)
+    r_lo, r_hi = st.reward.min(), st.reward.max()
     getup = hasattr(st.task, "recovery_counter")
     suppressed_ok = True
     t0 = time.time()
@@ -922,6 +988,7 @@ def env_run(env_, n_steps, per_auto, counted, action, gen):
         ov += st.info["overflow"].float().mean()
         stl += st.info["stalled"].float().mean()
         nact = torch.maximum(nact, st.info["nactive"].max())
+        r_lo, r_hi = torch.minimum(r_lo, st.reward.min()), torch.maximum(r_hi, st.reward.max())
     torch.cuda.synchronize()
     el = time.time() - t0
     n_a, n_c, n_d, n_b, n_e = (fn.launches for fn in counted)
@@ -939,7 +1006,8 @@ def env_run(env_, n_steps, per_auto, counted, action, gen):
     check(st.obs.shape == (B_MAIN, env_.obs_size), f"obs shape {tuple(st.obs.shape)}")
     out.update(state=st, rate=B_MAIN * n_steps / el, overflow=(ov / n_steps).item(),
                stalled=(stl / n_steps).item(), nactive_max=int(nact), chol_solve=n_a, newton_qp=n_b,
-               per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps})
+               per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps},
+               reward_min=float(r_lo), reward_max=float(r_hi))
     return out
 
 
@@ -1304,6 +1372,244 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']})", flush=True)
     out.update(x_run=x_run, xbuild_s=xbuild_s, x64_launches=x64_l)
+    return out
+
+
+def device_ops(fn) -> tuple[float, float]:
+    """Device busy ms and device ops (kernels, copies, sets) of one fn() call
+    under torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    return sum(us(e) for e in ev) / 1e3, sum(e.count for e in ev)
+
+
+def cpu_copy(state):
+    """An EnvState's tensors on the CPU, a fresh CPU generator in its rng."""
+    from smplsim_tpu_torch.envs.base import map_state
+
+    return map_state(lambda t: t.cpu() if isinstance(t, torch.Tensor) else torch.Generator(), state)
+
+
+def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict:
+    """Phases 22-25: the articulated-body route beside the dense one,
+    NvHumanoid through GymVectEnv, DomainRandEnv over HumanoidSpeed and
+    HumanoidMove, each counted run with every launch count set to 0 just
+    before it and read just after."""
+    from smplsim_tpu_torch.envs import (DomainRandConfig, DomainRandEnv, GymVectEnv,
+                                        HumanoidMove, HumanoidSpeed, NoiseSpec, NvConfig,
+                                        NvHumanoid)
+    from smplsim_tpu_torch.envs.nv import obs_max_v2_size
+    from smplsim_tpu_torch.ops import linalg
+    from smplsim_tpu_torch.physics import control, dynamics, engine, kinematics, substep
+
+    out, report = {}, {}
+    cpu_model = model.to(device="cpu")
+    rel = lambda g_, c_: ((g_.cpu() - c_).abs() / (1.0 + c_.abs())).amax().item()
+
+    def card_vs_cpu(tag, m_g, st_g, cache_g, steps, act):
+        """`steps` control steps of CFI substeps on the card and on the CPU
+        from the same state under the same actions: qpos within 5e-3."""
+        m_c = m_g.to(device="cpu")
+        st_c = engine.PhysicsState(st_g.qpos.cpu(), st_g.qvel.cpu())
+        cache_c = tuple(x.cpu() for x in cache_g)
+        for _ in range(steps):
+            a = act()
+            st_g, _, _, cache_g = engine.control_step(m_g, st_g, a, CFI, cache_g, **QP)
+            st_c, _, _, cache_c = engine.control_step(m_c, st_c, a.cpu(), CFI, cache_c, **QP)
+        d = rel(st_g.qpos, st_c.qpos)
+        check(d <= 5e-3, f"{tag} card vs CPU, {st_c.qpos.shape[0]} envs, {steps} control steps: "
+                         f"qpos {d:.3e} <= 5e-3")
+        return d
+
+    # ------------------------------------------------- 22. the ABA route
+    print("phase 22: the articulated-body route (SMPLSIM_ABA=1) beside the dense route", flush=True)
+    env = HumanoidSpeed(model, **QP)
+    runs = {}
+    try:
+        for route, flag, per in (("dense", "0", (2 * CFI, CFI)), ("aba", "1", (1, CFI))):
+            os.environ["SMPLSIM_ABA"] = flag
+            g22 = torch.Generator(device=dev).manual_seed(22)
+            act22 = lambda n, g_=g22: torch.rand(n, model.nu, generator=g_, device=dev) * 2.0 - 1.0
+            runs[route] = env_run(env, STEPS, per, counted, act22, g22)
+        r_d, r_a = runs["dense"], runs["aba"]
+        print(f"  {STEPS} control steps x {B_MAIN} envs, same draw: ABA route {r_a['rate']:.1f} "
+              f"env-steps/s, dense route {r_d['rate']:.1f} ({r_a['rate'] / r_d['rate']:.3f}x); "
+              f"overflow {r_a['overflow']:.5f} / {r_d['overflow']:.5f}, stalled "
+              f"{r_a['stalled']:.5f} / {r_d['stalled']:.5f}; launches per control step "
+              f"{r_a['per_step']} / {r_d['per_step']}; phase 3 {speed_rate:.1f}; on {card}",
+              flush=True)
+        out["aba_cmp"] = card_vs_cpu(
+            "ABA route", model, *(lambda f: (f.phys, f.pd_cache))(env.reset(16, gen)), 2,
+            lambda: 0.5 * (torch.rand(16, model.nu, generator=gen, device=dev) * 2.0 - 1.0))
+        # the elimination against Kernel A on a real substep's systems
+        g22 = torch.Generator(device=dev).manual_seed(23)
+        act22 = lambda n: torch.rand(n, model.nu, generator=g22, device=dev) * 2.0 - 1.0
+        st = advanced(env, act22, g22)
+    finally:
+        os.environ.pop("SMPLSIM_ABA")
+    q, v = st.phys.qpos, st.phys.qvel
+    kin = kinematics.fk(model, q)
+    M = dynamics.mass_matrix(model, kin)
+    a_now = act22(B_MAIN)
+    rhs1, d1, _ = control.stable_pd_system(model, st.pd_cache[1], q, v,
+                                           control.pd_target_from_action(model, a_now))
+    rhs33 = substep_inputs(model, st, a_now)["chol"]["m=33"][1]
+    solve = substep.aba_solver(model, kin)
+    held = (v.abs().amax(1) <= WILD_QVEL) & torch.isfinite(
+        linalg.chol_solve_plain(M.double(), rhs1.double(), d1.double())).flatten(1).all(1)
+    print(f"  systems held: {int(held.sum())} of {B_MAIN} (|qvel| <= {WILD_QVEL:g}, M + diag SPD "
+          "in float64)", flush=True)
+    report["aba"] = {}
+    for name, rhs, d in (("m=1,diag", rhs1, d1), ("m=33", rhs33, None)):
+        H = M if d is None else M + torch.diag_embed(d)
+        xe, xa = solve(rhs, d), linalg.chol_solve(M, rhs, d)
+        res_e = rel_residual(H[held], xe[held], rhs[held])
+        res_a = rel_residual(H[held], xa[held], rhs[held])
+        check(bool(torch.isfinite(xe[held]).all()) and res_e <= ABA_RESIDUAL,
+              f"ABA mass_solve[{name}] float32: relative residual against M + diag {res_e:.3e} "
+              f"<= {ABA_RESIDUAL:g} (Kernel A on the same systems {res_a:.3e})")
+        ms_e = cuda_ms(lambda: solve(rhs, d), 10)
+        ms_a = cuda_ms(lambda: linalg.chol_solve(M, rhs, d), 20)
+        busy_e, ops_e = device_ops(lambda: solve(rhs, d))
+        report["aba"][name] = dict(residual=res_e, residual_A=res_a, ms=ms_e, A_ms=ms_a,
+                                   device_busy_ms=busy_e, device_ops=ops_e,
+                                   residual_bound=ABA_RESIDUAL)
+        print(f"  ABA mass_solve[{name}]: {ms_e:.4f} ms by events ({busy_e:.4f} ms device busy, "
+              f"{ops_e:.0f} device ops per solve) beside Kernel A's {ms_a:.4f} ms (one launch)",
+              flush=True)
+    out.update(aba=r_a, aba_dense=r_d)
+
+    # ---------------------------------- 23. NvHumanoid through GymVectEnv
+    print("phase 23: NvHumanoid (obs v2, freeze_hand, impulses, 2 projectiles) through "
+          "GymVectEnv", flush=True)
+    ncfg = NvConfig(obs_v=2, past_track_steps=5, freeze_hand=True, perturb_interval=4,
+                    num_projectiles=2, proj_interval=8)
+    nenv = NvHumanoid(model, ncfg, **QP)
+    venv = GymVectEnv(nenv, B_MAIN, seed=23)
+    rng = np.random.RandomState(23)
+    acts = [rng.uniform(-1.0, 1.0, (B_MAIN, model.nu)).astype(np.float32) for _ in range(STEPS)]
+    obs, _ = venv.reset()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.time()
+    term = ov = stl = 0.0
+    finite, finals = True, 0
+    for a in acts:
+        obs, rew, te, tr, info = venv.step(a)
+        term += te.mean()
+        ov += info["overflow"].mean()
+        stl += info["stalled"].mean()
+        finite &= bool(np.isfinite(obs).all() and np.isfinite(rew).all())
+        finals += "final_observation" in info
+    el = time.time() - t0
+    n_l = [fn.launches for fn in counted]
+    check(n_l[0] == 2 * CFI * STEPS and n_l[3] == CFI * STEPS and sum(n_l) == 3 * CFI * STEPS,
+          f"NvHumanoid: chol_solve {n_l[0]} = 30 x {STEPS} and newton_qp {n_l[3]} = 15 x {STEPS}")
+    width = obs_max_v2_size(model.nbody, 6)
+    check(finite and obs.shape == (B_MAIN, width) == (B_MAIN, nenv.obs_size),
+          f"NvHumanoid obs finite, of width obs_max_v2_size(24, 6) = {width}")
+    nrate = B_MAIN * STEPS / el
+    print(f"  {STEPS} steps x {B_MAIN} envs through the facade (numpy actions in, clipped obs "
+          f"and flags copied out): {nrate:.1f} env-steps/s; termination share "
+          f"{term / STEPS:.5f}, steps with final_observation {finals}, overflow {ov / STEPS:.5f}, "
+          f"stalled {stl / STEPS:.5f}; on {card}", flush=True)
+    out["nv"] = dict(rate=nrate, chol_solve=n_l[0], newton_qp=n_l[3], termination=term / STEPS,
+                     overflow=ov / STEPS, stalled=stl / STEPS,
+                     per_step={"chol_solve": n_l[0] / STEPS, "newton_qp": n_l[3] / STEPS})
+    # card vs CPU: 16 envs, 2 control steps, the impulse and throw draws
+    # made on the card and fed to both
+    env_g, env_c = NvHumanoid(model, ncfg, **QP), NvHumanoid(cpu_model, ncfg, **QP)
+    s_g = env_g.reset(16, gen)
+    s_c = cpu_copy(s_g)
+    for _ in range(2):
+        imp = NvHumanoid._impulse_draws(env_g, 16, gen)
+        thr = NvHumanoid._throw_draws(env_g, 16, gen)
+        env_g._impulse_draws, env_g._throw_draws = (lambda n, g_: imp), (lambda n, g_: thr)
+        imp_c, thr_c = tuple(x.cpu() for x in imp), tuple(x.cpu() for x in thr)
+        env_c._impulse_draws, env_c._throw_draws = (lambda n, g_: imp_c), (lambda n, g_: thr_c)
+        a = 0.5 * (torch.rand(16, model.nu, generator=gen, device=dev) * 2.0 - 1.0)
+        s_g, s_c = env_g.step(s_g, a), env_c.step(s_c, a.cpu())
+    d = max(rel(s_g.phys.qpos, s_c.phys.qpos), rel(s_g.proj[0], s_c.proj[0]))
+    check(d <= 5e-3, f"NvHumanoid card vs CPU, 16 envs, 2 control steps with impulses and "
+                     f"throws: qpos and sphere positions {d:.3e} <= 5e-3")
+    out["nv"]["cmp"] = d
+
+    # ------------------------------------ 24. DomainRandEnv over HumanoidSpeed
+    print("phase 24: DomainRandEnv over HumanoidSpeed (every field, both noises)", flush=True)
+    scl = lambda lo, hi: NoiseSpec("uniform", "scaling", (lo, hi))
+    gauss = NoiseSpec("gaussian", "additive", (0.0, 0.01))
+    drcfg = DomainRandConfig(frequency=1, observations=gauss, actions=gauss,
+                             body_mass=scl(0.8, 1.2), friction=scl(0.5, 1.5),
+                             dof_damping=scl(0.5, 1.5), armature=scl(0.5, 2.0),
+                             pd_gains=scl(0.8, 1.2), gravity=scl(0.95, 1.05))
+    denv = DomainRandEnv(HumanoidSpeed(model, **QP), drcfg)
+    action = lambda n: torch.rand(n, model.nu, generator=gen, device=dev) * 2.0 - 1.0
+    ds = denv.reset(B_MAIN, gen)
+    check(float(ds.model.body_mass.sum(1).std()) > 1e-2 and float(ds.model.gravity[:, 2].std()) > 0,
+          f"every env its own realization: total mass {float(ds.model.body_mass.sum(1).min()):.3f}-"
+          f"{float(ds.model.body_mass.sum(1).max()):.3f} kg")
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    redraws = torch.zeros((), dtype=torch.int64, device=dev)
+    ov = stl = 0.0
+    for _ in range(STEPS):
+        ds = denv.step_autoreset(ds, action(B_MAIN))
+        redraws += ds.inner.done.sum()
+        ov += ds.inner.info["overflow"].float().mean()
+        stl += ds.inner.info["stalled"].float().mean()
+    torch.cuda.synchronize()
+    el = time.time() - t0
+    n_l = [fn.launches for fn in counted]
+    check(n_l[0] == 2 * CFI * STEPS and n_l[3] == CFI * STEPS and sum(n_l) == 3 * CFI * STEPS,
+          f"DomainRandEnv: chol_solve {n_l[0]} = 30 x {STEPS} and newton_qp {n_l[3]} = 15 x "
+          f"{STEPS}")
+    check(all(bool(torch.isfinite(x).all()) for x in (
+        ds.inner.phys.qpos, ds.inner.phys.qvel, ds.inner.obs, ds.inner.reward,
+        *ds.inner.pd_cache)), "DomainRandEnv state finite")
+    drate = B_MAIN * STEPS / el
+    print(f"  {STEPS} step_autoresets x {B_MAIN} envs: {drate:.1f} env-steps/s "
+          f"({drate / speed_rate:.3f}x phase 3's); realizations redrawn {int(redraws)} times "
+          f"(frequency 1: every reset); overflow {(ov / STEPS).item():.5f}, stalled "
+          f"{(stl / STEPS).item():.5f}; on {card}", flush=True)
+    out["dr"] = dict(rate=drate, redraws=int(redraws), chol_solve=n_l[0], newton_qp=n_l[3],
+                     overflow=(ov / STEPS).item(), stalled=(stl / STEPS).item(),
+                     per_step={"chol_solve": n_l[0] / STEPS, "newton_qp": n_l[3] / STEPS})
+    print("phase 24: kernels A and B against their plain versions (domain-randomized inputs)",
+          flush=True)
+    ds = denv.reset(B_MAIN, gen)
+    for _ in range(3):
+        ds = denv.step_autoreset(ds, action(B_MAIN))
+    a_now = action(B_MAIN)
+    d_inputs = held_inputs("dr ", substep_inputs(ds.model, ds.inner, a_now), ds.inner)
+    report["dr"] = hold_a_b("dr ", d_inputs, converged_only=True)
+    report["dr"].update(full_rows=d_inputs["full_rows"], systems=d_inputs["held"])
+    d16 = denv.reset(16, gen)
+    out["dr"]["cmp"] = card_vs_cpu(
+        "DomainRandEnv realization", d16.model, d16.inner.phys, d16.inner.pd_cache, 2,
+        lambda: 0.5 * (torch.rand(16, model.nu, generator=gen, device=dev) * 2.0 - 1.0))
+
+    # ------------------------------------------------- 25. HumanoidMove
+    print("phase 25: HumanoidMove (180 Hz physics, 6 substeps per control step)", flush=True)
+    m180 = dataclasses.replace(model, timestep=torch.tensor(1.0 / 180.0, device=dev))
+    menv = HumanoidMove(m180, **QP)
+    mact = lambda n: torch.rand(n, model.nu, generator=gen, device=dev) * 2.0 - 1.0
+    mv = env_run(menv, STEPS, (12, 6), counted, mact, gen)
+    check(0.0 <= mv["reward_min"] and mv["reward_max"] <= 1.0,
+          f"every reward in [0, 1] ({mv['reward_min']:.4f}-{mv['reward_max']:.4f})")
+    print(f"  {STEPS} step_autoresets x {B_MAIN} envs: {mv['rate']:.1f} env-steps/s "
+          f"({mv['rate'] / speed_rate:.3f}x phase 3's at 15 substeps); overflow "
+          f"{mv['overflow']:.5f}, stalled {mv['stalled']:.5f}; on {card}", flush=True)
+    out["move"] = mv
+    out["report"] = report
     return out
 
 
@@ -1949,13 +2255,16 @@ def main() -> None:
 
     bp = body_paths(dev, counted, card, rate, gen)
     report["beta"], report["smplx"] = bp["beta"], bp["smplx"]
+    s7 = slice7_paths(model, dev, counted, card, rate, gen)
+    report.update(s7["report"])
 
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
     mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
     d_names = list(d_cases)
     runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run, "beta": bp["b_run"],
-             "smplx": bp["x_run"]}
+             "smplx": bp["x_run"], "aba_route": s7["aba"], "aba_dense": s7["aba_dense"],
+             "nv_gym": s7["nv"], "domain_rand": s7["dr"], "move": s7["move"]}
     names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
     ball = dict(zip(names, l_hit))
     x64 = dict(zip(names, bp["x64_launches"]))
@@ -1965,8 +2274,9 @@ def main() -> None:
     def paths(uhc, torque, jac, name):
         """Launch counts of kernel `name` on every counted run of the main
         path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, 18's
-        two PPO iterations and eval rollout, 19's plan, and 20's β batch
-        and 21's SMPLX runs (its float64 step too)."""
+        two PPO iterations and eval rollout, 19's plan, 20's β batch and
+        21's SMPLX runs (its float64 step too), 22's two routes, 23's
+        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs."""
         new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
         return dict(
             launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name],
@@ -1993,9 +2303,10 @@ def main() -> None:
              shapes={**{k: report[k] for k in ("m=1,diag", "m=33")},
                      **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")},
                      **{f"trainer {k}": report["trainer"][k] for k in trainer_chol},
-                     **{f"{p} {k}": report[p][k] for p in ("beta", "smplx")
+                     **{f"{p} {k}": report[p][k] for p in ("beta", "smplx", "dr")
                         for k in ("m=1,diag", "m=33")},
-                     "smplx float64 m=65": bp["smplx_f64_m65"]}),
+                     "smplx float64 m=65": bp["smplx_f64_m65"]},
+             aba_elimination=report["aba"]),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
              replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
              **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"],
@@ -2004,7 +2315,7 @@ def main() -> None:
                                      "trainer": {**report["trainer"]["qp"],
                                                  "full_rows": report["trainer"]["full_rows"]},
                                      **{p: {**report[p]["qp"], "full_rows": report[p]["full_rows"]}
-                                        for p in ("beta", "smplx")}}),
+                                        for p in ("beta", "smplx", "dr")}}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:104",
@@ -2031,7 +2342,10 @@ def main() -> None:
           f"{ppo_sec['rollout']:.3f} s + update {ppo_sec['update']:.3f} s, "
           f"{pcfg.num_envs * pcfg.horizon / (ppo_sec['rollout'] + ppo_sec['update']):.1f} "
           f"training env-steps/s; CEM: {plan_s:.3f} s per plan; β batch "
-          f"{bp['b_run']['rate']:.1f}, SMPLX {bp['x_run']['rate']:.1f} env-steps/s", flush=True)
+          f"{bp['b_run']['rate']:.1f}, SMPLX {bp['x_run']['rate']:.1f} env-steps/s; ABA route "
+          f"{s7['aba']['rate']:.1f} beside dense {s7['aba_dense']['rate']:.1f}, NvHumanoid "
+          f"{s7['nv']['rate']:.1f}, DomainRandEnv {s7['dr']['rate']:.1f}, HumanoidMove "
+          f"{s7['move']['rate']:.1f} env-steps/s", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -34,7 +34,11 @@ EnvState.rng; it must live on the model's device.
 An env on a stacked model of N rows (models/spec.py: each env its own
 body, e.g. N β bodies, `tile_model` to repeat them over a larger batch)
 steps batches of exactly N and raises on any other; all N timesteps must be
-equal. Its Fall pool is simulated on the bodies repeated in order (a pool
+equal. `reset`, `step` and `step_autoreset` take a `model=` of the env's
+topology for one call (the JAX package's hook): a stacked model of one row
+per env carries a per-env physical realization in the caller's state
+(envs/domain_rand.py), and the bad-state reset reference is recomputed for
+it. Its Fall pool is simulated on the bodies repeated in order (a pool
 size that N divides), and env i resets from the pool states of its own
 body.
 """
@@ -266,12 +270,13 @@ class HumanoidEnv:
         return engine.pd_cache(m, phys) + (
             torch.zeros((phys.qpos.shape[0], constraints.NEFC), dtype=m.dtype, device=m.device),)
 
-    def _init_phys(self, batch: int, generator: torch.Generator) -> PhysicsState:
-        m = self.model
+    def _init_phys(self, batch: int, generator: torch.Generator,
+                   model: RobotModel | None = None) -> PhysicsState:
+        m = self.model if model is None else model
         cfg = self.config
         if cfg.state_init == "Fall":
-            if self._fall_pool is None:
-                return self.fall_phys(self._fall_actions(batch, generator))
+            if self._fall_pool is None or m is not self.model:
+                return self.fall_phys(self._fall_actions(batch, generator), model)
             if m.stacked:
                 # env i draws among the pool states of body i
                 k = torch.randint(0, cfg.fall_init_pool // batch, (batch,), generator=generator,
@@ -288,15 +293,17 @@ class HumanoidEnv:
         qpos[:, 3:7] = 0.5
         return PhysicsState(qpos, torch.zeros((batch, m.nv), dtype=m.dtype, device=m.device))
 
-    def compute_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin) -> torch.Tensor:
+    def compute_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin,
+                    model: RobotModel | None = None) -> torch.Tensor:
         cfg = self.config
-        body_rot = kinematics.body_quats(self.model, phys.qpos)
+        model = self.model if model is None else model
+        body_rot = kinematics.body_quats(model, phys.qpos)
         if cfg.self_obs_v == 1:
             prop = obs_mod.compute_self_obs_v1(
                 phys.qvel, kin.xpos, body_rot, self.upright_start,
                 cfg.root_height_obs, self.model.humanoid_type)
         elif cfg.self_obs_v == 2:
-            lin, ang = kinematics.body_velocities(self.model, kin, phys.qvel)
+            lin, ang = kinematics.body_velocities(model, kin, phys.qvel)
             prop = obs_mod.compute_self_obs_v2(
                 kin.xpos, body_rot, lin, ang, self.upright_start,
                 cfg.root_height_obs, self.model.humanoid_type)
@@ -304,20 +311,24 @@ class HumanoidEnv:
             raise NotImplementedError(f"self_obs_v {cfg.self_obs_v}")
         return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
 
-    def reset(self, batch: int, generator: torch.Generator) -> EnvState:
+    def reset(self, batch: int, generator: torch.Generator,
+              model: RobotModel | None = None) -> EnvState:
         """Fresh states for `batch` envs: task first, then the humanoid; in
         uhc_pd mode the stable-PD cache is the fresh (M, C) at the init state
         (the reference's forward pass after a reset) with a cold constraint
-        warm start, in the other modes None."""
-        m = self.model
+        warm start, in the other modes None. `model` replaces the env's for
+        this call: a stacked model of `batch` rows carries a per-env
+        physical realization (envs/domain_rand.py); the static topology must
+        be the env's."""
+        m = self.model if model is None else model
         check_batch(m, batch)
         dev = m.device
         cur_t = torch.zeros(batch, dtype=torch.int32, device=dev)
         task = self.reset_task(generator, self.init_task(batch), cur_t)
-        phys = self._init_phys(batch, generator)
+        phys = self._init_phys(batch, generator, model)
         kin = kinematics.fk(m, phys.qpos)
-        obs = self.compute_obs(task, phys, kin)
-        cache = self._fresh_cache(phys)
+        obs = self.compute_obs(task, phys, kin, m)
+        cache = self._fresh_cache(phys, m)
         zeros = torch.zeros(batch, dtype=m.dtype, device=dev)
         false = torch.zeros(batch, dtype=torch.bool, device=dev)
         return EnvState(
@@ -326,9 +337,16 @@ class HumanoidEnv:
             info={"power": zeros, "nactive": cur_t, "overflow": false, "stalled": false},
             pd_cache=cache, kin=kin, rng=generator)
 
-    def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
+    def _reset_ref_for(self, model: RobotModel):
+        """The bad-state reset reference: the env's, or, for another model,
+        recomputed (the JAX package's `reset_ref=None`)."""
+        return self._reset_ref if model is self.model else engine.reset_reference(model)
+
+    def step(self, state: EnvState, action: torch.Tensor,
+             model: RobotModel | None = None) -> EnvState:
+        """One control step of every env; `model` as in `reset`."""
         cfg = self.config
-        m = self.model
+        m = self.model if model is None else model
         check_batch(m, action.shape[0])
         action = action.to(state.phys.qpos.dtype)
         if cfg.clip_actions:
@@ -339,12 +357,12 @@ class HumanoidEnv:
 
         phys, lean, power, cache = engine.control_step(
             m, state.phys, action, control_freq_inv=cfg.control_frequency_inv,
-            cache=state.pd_cache, reset_ref=self._reset_ref, **self._qp,
+            cache=state.pd_cache, reset_ref=self._reset_ref_for(m), **self._qp,
             control_mode=cfg.control_mode, power_scale=cfg.power_scale)
 
         cur_t = state.cur_t + 1
         kin = kinematics.fk(m, phys.qpos)
-        obs = self.compute_obs(task, phys, kin)
+        obs = self.compute_obs(task, phys, kin, m)
         rew = self.reward(task, phys, kin, action)
         truncated = cur_t > cfg.episode_length
         illegal = lean.geom_floor_contact & ~self._legal_floor_geom
@@ -360,12 +378,14 @@ class HumanoidEnv:
                   "stalled": lean.stalled_any},
             pd_cache=cache, kin=kin, rng=state.rng)
 
-    def step_autoreset(self, state: EnvState, action: torch.Tensor) -> EnvState:
+    def step_autoreset(self, state: EnvState, action: torch.Tensor,
+                       model: RobotModel | None = None) -> EnvState:
         """Step, then reset every env that finished (terminated or
         truncated). Their reward, flags and info are the finishing step's;
-        phys, obs, task and caches come from the reset."""
-        nxt = self.step(state, action)
-        fresh = self.reset(nxt.cur_t.shape[0], nxt.rng)
+        phys, obs, task and caches come from the reset; `model` as in
+        `reset`."""
+        nxt = self.step(state, action, model)
+        fresh = self.reset(nxt.cur_t.shape[0], nxt.rng, model)
         fresh = dataclasses.replace(
             fresh, reward=nxt.reward, terminated=nxt.terminated,
             truncated=nxt.truncated, info=nxt.info)

@@ -28,8 +28,7 @@ from smplsim_tpu_torch.models.spec import GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, R
 from smplsim_tpu_torch.physics.algebra import cross
 from smplsim_tpu_torch.physics.collision_pairs import (BIG, MAX_SELF, _box_sdf, _geom_world,
                                                        _segment, self_contacts, top_k)
-from smplsim_tpu_torch.physics.dynamics import body_twists
-from smplsim_tpu_torch.physics.kinematics import Kin
+from smplsim_tpu_torch.physics.kinematics import Kin, body_twists
 
 MAX_CONTACTS = 24   # floor contacts kept per env (deepest first)
 MAX_LIMITS = 12     # joint-limit rows kept per env

@@ -10,8 +10,8 @@ Stable-PD (the uhc_pd control mode):
 M includes armature; M and C are the PREVIOUS substep's, as MuJoCo's
 mjData.qM and qfrc_bias are when the reference controller reads them.
 `stable_pd_torque` is the batched spine's form (one `chol_solve` with the
-diagonal shift); `stable_pd_torque_ref` the per-env form of the JAX
-package, which factors M + dt diag(kd) with the differentiable
+diagonal shift, or the articulated-body solve); `stable_pd_torque_ref` the
+per-env form of the JAX package, which factors M + dt diag(kd) with the differentiable
 `cho_factor_solve` and is what the reference loop runs under forward AD.
 
 Torque (the torque control mode, the reference's SimpleTorqueController):
@@ -60,10 +60,13 @@ def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc, kp_scale, kd_scale):
 def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
                      kp_scale: float = 1.0, kd_scale: float = 1.0):
     """tau (B,nu) from the stale (M, C) and the current state, the gains
-    scaled by kp_scale and kd_scale; the (M + dt diag(kd)) solve is one
-    fused factor+solve (`linalg.chol_solve`)."""
+    scaled by kp_scale and kd_scale. M_prev is the (B,nv,nv) matrix, whose
+    (M + dt diag(kd)) solve is one fused factor+solve (`linalg.chol_solve`),
+    or a solve closure solve(rhs, diag) -> (M + diag)^-1 rhs
+    (substep.aba_solver: the articulated-body route)."""
     rhs, diag, qerr = stable_pd_system(model, C_prev, qpos, qvel, target, kp_scale, kd_scale)
-    qacc = linalg.chol_solve(M_prev, rhs, diag)[..., 0]
+    qacc = (M_prev(rhs, diag) if callable(M_prev)
+            else linalg.chol_solve(M_prev, rhs, diag))[..., 0]
     return _stable_pd_tau(model, qerr, qvel, qacc, kp_scale, kd_scale)
 
 

@@ -71,11 +71,6 @@ def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor
     return (S * fC).sum(-1)
 
 
-def body_twists(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
-    """(B,J,6) body twists [omega; v_O] about the world origin."""
-    return _mask(model, "body_dof", kin.S) @ (kin.S * qvel[..., None])
-
-
 def external_forces(model: RobotModel, kin: Kin, force: torch.Tensor,
                     torque: torch.Tensor | None = None) -> torch.Tensor:
     """(B,nv) generalized forces of per-body external wrenches (MuJoCo's

@@ -2,12 +2,14 @@
 `forward` and `step` (mj_forward / mj_step) and `control_step`.
 
 control_step runs in one of three modes. "uhc_pd" (the default) runs the
-batched stable-PD spine of physics/substep.py. "torque" (the reference's
-SimpleTorqueController: tau = clip(action * power_scale * torque_lim)) and
-"default" (the action is the joint torque) run the per-env composition of
-`forward`: FK, smooth dynamics with one `cho_factor_solve`, the constraint
-rows and the Gram-form contact solve (`solver.solve_constraints_gram`),
-then semi-implicit Euler and MuJoCo's mjMAXVAL reset. Their warm start
+batched stable-PD spine of physics/substep.py (its dense route, or in
+float32 the articulated-body route where SMPLSIM_ABA asks for it).
+"torque" (the reference's SimpleTorqueController: tau = clip(action *
+power_scale * torque_lim)) and "default" (the action is the joint torque)
+run the per-env composition of `forward`: FK, smooth dynamics with one
+`cho_factor_solve`, the constraint rows and the Gram-form contact solve
+(`solver.solve_constraints_gram`), then semi-implicit Euler and MuJoCo's
+mjMAXVAL reset. Their warm start
 begins at zero each control step and carries across its substeps; they
 return no cache.
 
@@ -118,7 +120,7 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
                  control_freq_inv: int = 15, cache=None, reset_ref=None,
                  qp_iters=None, qp_rows=None, qp_tol=None, keeps=None,
                  control_mode: str = "uhc_pd", power_scale: float = 1.0,
-                 ext_force=None, proj=None):
+                 ext_force=None, proj=None, pd_target_mask=None):
     """One control step of control_freq_inv substeps for a batch.
 
     action (B,nu) in [-1,1] ("default" mode: joint torques). qp_iters /
@@ -132,7 +134,10 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
     and proj = (pos (B,P,3), vel (B,P,3), radius (B,P), inverse mass
     (B,P)), free spheres that collide with the humanoid; with proj the step
     returns a fifth entry, the spheres' (pos, vel). The torque and default
-    modes ignore both, as the JAX package's do."""
+    modes ignore both, as the JAX package's do. pd_target_mask (nu,) or
+    (B,nu) multiplies the PD target in uhc_pd mode (freeze_hand / freeze_toe /
+    remove_neck zero the target of their joints); the other modes ignore
+    it."""
     if reset_ref is None:
         reset_ref = reset_reference(model)
     if control_mode in ("torque", "default"):
@@ -151,7 +156,9 @@ def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
         M0, C0, f_w0 = cache
     K = None if qp_rows is None else min(qp_rows, constraints.NEFC)
     target = pd_target_from_action(model, action)
-    hooks = [t for t in (ext_force, *(proj or ())) if t is not None]
+    if pd_target_mask is not None:
+        target = target * pd_target_mask
+    hooks = [t for t in (ext_force, *(proj or ()), pd_target_mask) if t is not None]
     fields = [getattr(model, f) for f in ARRAY_FIELDS]
     tangent = any(forward_ad.unpack_dual(t).tangent is not None
                   for t in (state.qpos, state.qvel, action, M0, C0, f_w0, *reset_ref, *hooks,

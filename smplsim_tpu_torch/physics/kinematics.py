@@ -24,6 +24,7 @@ import torch
 from smplsim_tpu_torch import transforms as T
 from smplsim_tpu_torch.models.spec import RobotModel, check_batch
 from smplsim_tpu_torch.physics.algebra import cross
+from smplsim_tpu_torch.physics.topology import mask_tensor
 
 
 @dataclasses.dataclass
@@ -56,11 +57,15 @@ def fk(model: RobotModel, qpos: torch.Tensor) -> Kin:
         Rp = xmat[p]
         # Two forms of one product. A stacked model takes batched products
         # over its (B,) fields; the shared model keeps its gemv/gemm, whose
-        # rounding the narrowphase reads: with the batched product for both,
-        # a deep capsule-box contact of
+        # rounding is the one the test below holds against JAX. The state of
         # tests/test_torch_modules.py::test_self_contacts_match_wide_keeps[2]
-        # flips against JAX. So stacked copies of one body agree with the
-        # shared model to a few ulps here, not bit for bit.
+        # is a knife edge of the narrowphase itself: the JAX package's own
+        # per-env self_contacts flips its deep capsule-box contacts under
+        # random one-ulp changes of its FK frames (in 62-159 of 200 trials,
+        # tests/_torch_fk_ulp_check.py), and a form that makes stacked copies
+        # bit for bit the shared model (elementwise products for both) flips
+        # that test. So stacked copies of one body agree with the shared
+        # model to a few ulps here, not bit for bit.
         if model.stacked:
             pos = xpos[p] + (Rp @ body_pos[:, b, :, None])[..., 0]
             F0 = Rp @ body_R_local[:, b]          # frame before the hinge stack
@@ -115,12 +120,15 @@ def body_quats(model: RobotModel, qpos: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
+def body_twists(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
+    """(B,J,6) body twists [omega; v_O] about the world origin."""
+    body_dof = mask_tensor(model.parents, "body_dof", kin.S.dtype, kin.S.device)
+    return body_dof @ (kin.S * qvel[..., None])
+
+
 def body_velocities(model: RobotModel, kin: Kin, qvel: torch.Tensor):
     """World linear velocity of each body frame origin and angular velocity,
     (B,J,3) each (MuJoCo's framelinvel / frameangvel sensors on xbody)."""
-    # dynamics imports this module for Kin, so import it here
-    from smplsim_tpu_torch.physics.dynamics import body_twists
-
     V = body_twists(model, kin, qvel)
     w, v0 = V[..., :3], V[..., 3:]
     return v0 + cross(w, kin.xpos), w

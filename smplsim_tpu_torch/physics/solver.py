@@ -102,8 +102,10 @@ def delassus(rows: Rows, X: torch.Tensor):
 
 
 def solve_constraints(model, S, M, qfrc, efc: EFC, f_warm, iters=None, K=None, tol=None):
-    """S (B,nv,6) dof subspaces; M (B,nv,nv) mass matrix; qfrc (B,nv) smooth
-    force; f_warm (B,NEFC) previous forces in the full row layout.
+    """S (B,nv,6) dof subspaces; M the (B,nv,nv) mass matrix, or a solve
+    closure solve(rhs) -> M^-1 rhs (substep.aba_solver: the articulated-body
+    route, which launches no `chol_solve`); qfrc (B,nv) smooth force;
+    f_warm (B,NEFC) previous forces in the full row layout.
 
     Returns (qacc (B,nv), efc_force (B,NEFC), nactive (B,) int32 active
     rows (past K, the later active rows in row order were left out),
@@ -113,7 +115,8 @@ def solve_constraints(model, S, M, qfrc, efc: EFC, f_warm, iters=None, K=None, t
     B = qfrc.shape[0]
 
     rows = select_rows(model, S, efc, f_warm, K)
-    X = linalg.chol_solve(M, smooth_rhs(qfrc, rows))
+    rhs = smooth_rhs(qfrc, rows)
+    X = M(rhs) if callable(M) else linalg.chol_solve(M, rhs)
     A, b = delassus(rows, X)
     f = qp.newton_qp(A, b, rows.actf, rows.f0, iters, tol)
 

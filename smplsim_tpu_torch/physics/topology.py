@@ -1,8 +1,9 @@
 """Static topology masks derived from the kinematic tree (numpy only).
 
-A copy of smplsim_tpu/physics/topology.py::tree_masks: 0/1 matrices that turn
-the tree recursions of the dynamics into dense masked products. They depend
-only on the parents tuple and are cached per topology.
+A copy of smplsim_tpu/physics/topology.py::tree_masks and ::aba_levels:
+0/1 matrices that turn the tree recursions of the dynamics into dense
+masked products, and the level schedule of the articulated-body solve.
+They depend only on the parents tuple and are cached per topology.
 
 Dof layout: 0-5 root free joint (3 translation + 3 rotation), then 3 hinge
 dofs per non-root body in tree order.
@@ -91,3 +92,22 @@ def tree_masks(parents: tuple[int, ...]):
         subtree_body=subtree_body,
         dof_subtree_body=subtree_body[dof_body],
     )
+
+
+@functools.lru_cache(maxsize=32)
+def aba_levels(parents: tuple[int, ...]):
+    """Level schedule of the articulated-body solve (physics/aba.py), a copy
+    of smplsim_tpu/physics/topology.py::aba_levels.
+
+    Returns (levels, parent): `levels[d]` is a sorted numpy int array of the
+    bodies at tree depth d (root body 0 is levels[0]); `parent` is the
+    parents tuple as a numpy array. Bodies within a level are independent:
+    the sweeps run one level at a time, so the sequential depth of the
+    factorization and solve is the tree depth (about 9 for SMPL), not nv.
+    """
+    J = len(parents)
+    depth = np.zeros(J, dtype=np.int64)
+    for b in range(1, J):
+        depth[b] = depth[parents[b]] + 1
+    levels = [np.flatnonzero(depth == d) for d in range(int(depth.max()) + 1)]
+    return levels, np.asarray(parents, dtype=np.int64)

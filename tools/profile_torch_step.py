@@ -4,7 +4,7 @@ spends its time on the GPU.
     python3 tools/profile_torch_step.py [--batch 4096] [--steps 2]
                                         [--control-mode uhc_pd|torque]
                                         [--task speed|getup]
-                                        [--body default|beta|smplx]
+                                        [--body default|beta|smplx] [--aba]
     python3 tools/profile_torch_step.py --jacobian
 
 Default: runs HumanoidSpeed at the main-path operating point (float32, 15
@@ -16,7 +16,9 @@ its per-reset Fall init: each step_autoreset is 4 control steps (the 3 of
 the Fall, computed for every env, and the step). `--body` picks the
 humanoid: the baked one, 64 β bodies tiled over the batch (chip_smoke.py
 phase 20's) or the SMPLX humanoid (phase 21's), both built from the
-synthetic bodies of tests/_torch_synthetic_body.py.
+synthetic bodies of tests/_torch_synthetic_body.py. `--aba` sets
+SMPLSIM_ABA=1 for the run: the float32 spine's articulated-body route
+(physics/substep.py; 1 chol_solve and 15 newton_qp per control step).
 
 --jacobian: the derivative path at chip_smoke.py phase 9's operating point,
 in float32 and then float64: one Jacobian evaluation (control.jacobians,
@@ -207,6 +209,8 @@ def main() -> None:
                     help="HumanoidSpeed, or HumanoidGetup with its per-reset Fall init")
     ap.add_argument("--body", default="default", choices=("default", "beta", "smplx"),
                     help="the baked humanoid, 64 β bodies tiled over the batch, or SMPLX")
+    ap.add_argument("--aba", action="store_true",
+                    help="the articulated-body route of the spine (SMPLSIM_ABA=1)")
     ap.add_argument("--jacobian", action="store_true",
                     help="profile one warm Jacobian evaluation in float32 and float64")
     args = ap.parse_args()
@@ -217,12 +221,14 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
+    if args.aba:
+        os.environ["SMPLSIM_ABA"] = "1"
     if args.jacobian:
         result = {"card": card, "path": "jacobian",
                   "runs": [jacobian_profile(dt, card, dev)
                            for dt in (torch.float32, torch.float64)]}
     else:
-        result = {"card": card, **control_step_profile(args, card, dev)}
+        result = {"card": card, "aba": args.aba, **control_step_profile(args, card, dev)}
     print(card)
     print(json.dumps(result))
 
