@@ -31,6 +31,14 @@ Phases (any failure exits non-zero):
   4. card vs CPU: 16 envs from a fresh reset, 2 control steps with
      half-scale random actions on the card (kernels) and on the CPU (plain
      versions); qpos within 5e-3;
+ 4b. phase 4 again from another reset with the process at TF32
+     (torch.set_float32_matmul_precision("high")): through
+     engine.control_step, which pins full float32 (physics/precision.py),
+     within 5e-3 of the CPU, and again with TF32 set through
+     torch.backends.cuda.matmul.fp32_precision = "tf32" (the API that
+     makes the legacy getter raise); beside them the same two control
+     steps through the unpinned inner loop (substep.control_loop), printed,
+     not gated; the process set back to "highest";
   5. Kernels C cho_factor_solve (m=1) and D solve_lower (m=32, and m=1
      forward and transposed) against their plain versions on the card, on
      inputs of the torque path (B=4096 HumanoidSpeed envs in torque control
@@ -218,12 +226,37 @@ Phases (any failure exits non-zero):
      2 control steps, qpos within 5e-3;
  25. HumanoidMove at 180 Hz (the model's timestep set to 1/180), 6 substeps
      per control step, 4096 envs, 16 step_autoresets: 12 chol_solve + 6
-     newton_qp per step, every reward finite in [0, 1], env-steps/s.
+     newton_qp per step, every reward finite in [0, 1], env-steps/s;
+ 26. the motion library: 4096 synthetic clips of 60-600 frames
+     (tests/_torch_synthetic_motion.py, 1 in 4 at 60 fps) loaded with the
+     heading randomized (numpy.random.default_rng(0)): seconds, frames,
+     table bytes and memory_allocated before and after; the first 16 clips
+     card vs CPU (positions and rotations as +-q within 5e-3), and the
+     batched load against a per-clip load of them on the card (1e-6);
+ 27. get_motion_state and get_motion_state_intervaled at B = 4096 (ids
+     from sample_motion_ids, times from sample_time): seconds per call and
+     states/s over 100 calls after a warm-up; card vs CPU on one call over
+     clips 0-15 within 5e-3;
+ 28. HumanoidPlayback over that library at 4096 envs (env i plays clip
+     i), 64 step_autoresets: env-steps/s, no launch of Kernels A-E;
+     compute_metrics_lite of the physics FK of the played qpos against the
+     library's global_translation at the same frames, over the envs that
+     played 64 frames without a reset: mpjpe_g mean and max, those of
+     clips 0-15 within PLAYBACK_FK_GAP_MM (the JAX package's float64 gap)
+     + FK_GAP_SLACK_MM;
+ 29. PoseFitter (tests/test_fitting.py's camera and draws) on a 300-frame
+     clip: after a 2-step warm-up, fit(steps=100, lr=0.01) in float32,
+     seconds and the final / initial proj_2d_loss (< 0.2), fit() at its
+     defaults timed; the
+     float64 fit(steps=5) card vs CPU (losses and vector within 1e-9);
+ 30. poselib on the first 16 clips of phase 26: SkeletonState from the
+     clips' local rotations, its global_translation within 1e-5 m of
+     HumanoidBatchFK's; from the library's global rotations, printed.
 
 Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
 19's plan, 20's and 21's runs, 21's float64 step, 22's two runs, 23's,
-24's and 25's runs each set every launch count to 0 just before and read
-them just after. The third-to-last line is the `kernels` JSON object, the
+24's, 25's and 28's runs each set every launch count to 0 just before and
+read them just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -272,6 +305,25 @@ ABA_RESIDUAL = 1e-5
 # seed, draw and card: a kernel change that moves them moves the operating
 # point
 PREVIOUS_HEALTH = {"overflow": 0.20546, "stalled": 0.07318}
+# phase 28: the physics FK of the played qpos against the library's
+# global_translation is held to the JAX package's own float64 gap on the
+# same clips (frames 1-64 of the first PLAYBACK_CMP_CLIPS clips of the
+# motion set that play 64 steps, their heading draws), measured by
+# tests/test_torch_playback_poselib.py::test_physics_fk_against_library_gap
+# (which asserts it stays below these), plus FK_GAP_SLACK_MM of float32.
+# On the CPU in float64 the JAX package read mean 1.741e-13, max 1.461e-12
+# mm over those 16 clips, the port 1.781e-13 and 1.494e-12: rounding only
+# (the baked offsets already have 4 decimals, so the motion FK's rounding
+# to 5 changes nothing)
+PLAYBACK_CMP_CLIPS = 16
+# phases 26-29: clips of the motion library, calls timed per sampler,
+# playback steps, frames of the fitted clip
+N_CLIPS = 4096
+SAMPLE_CALLS = 100
+PLAY_STEPS = 64
+FIT_FRAMES = 300
+PLAYBACK_FK_GAP_MM = {"mean": 2e-13, "max": 2e-12}
+FK_GAP_SLACK_MM = 1e-2
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 outside the
 # tensor cores, float64 on them (the card's top rate for the type; 34e12
 # outside them)
@@ -1613,6 +1665,273 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
     return out
 
 
+def rel_gap(ref: torch.Tensor, val: torch.Tensor) -> float:
+    """max |ref - val| / (1 + |ref|) over all entries, in float64 on the host."""
+    ref, val = ref.detach().double().cpu(), val.detach().double().cpu()
+    return ((ref - val).abs() / (1.0 + ref.abs())).max().item() if ref.numel() else 0.0
+
+
+def quat_gap(ref: torch.Tensor, val: torch.Tensor) -> float:
+    """rel_gap of quaternions taken as +-q (the sign nearer ref)."""
+    ref, val = ref.detach().double().cpu(), val.detach().double().cpu()
+    return rel_gap(ref, torch.where((ref * val).sum(-1, keepdim=True) < 0, -val, val))
+
+
+def motion_paths(model, dev, counted, card: str) -> dict:
+    """Phases 26-30: the motion library (load and sampling), playback with
+    the tracking metrics, 2-D pose fitting and poselib, on the default
+    humanoid in float32 at seed 0 (module doc)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from _torch_synthetic_motion import motion_set
+    from smplsim_tpu_torch.envs import HumanoidPlayback, PlaybackState
+    from smplsim_tpu_torch.eval import compute_metrics_lite
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.motion import (CameraParams, HumanoidBatchFK, MotionLib,
+                                          MotionLibConfig, PoseFitter)
+    from smplsim_tpu_torch.motion import motion_lib
+    from smplsim_tpu_torch.motion.motion_lib import TABLES
+    from smplsim_tpu_torch.poselib import SkeletonState, SkeletonTree
+    from smplsim_tpu_torch import transforms as T
+
+    out = {}
+    cpu_model = registry.default_humanoid(torch.float32, device="cpu")
+    fk, fk_cpu = HumanoidBatchFK.from_robot_model(model), HumanoidBatchFK.from_robot_model(cpu_model)
+
+    # ---------------------------------------------------- 26. library load
+    print(f"phase 26: the motion library ({N_CLIPS} clips of 60-600 frames, 1 in 4 at 60 fps, "
+          "the heading randomized)", flush=True)
+    t0 = time.time()
+    motions = motion_set(N_CLIPS)
+    make_s = time.time() - t0
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    lib = MotionLib(fk, MotionLibConfig(randomize_heading=True), motion_dict=motions)
+    lib.load_motions(np.arange(N_CLIPS), rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    mem1 = torch.cuda.memory_allocated()
+    frames = int(lib._motion_num_frames.sum())
+    table_bytes = sum(getattr(lib, k).numel() * getattr(lib, k).element_size() for k in TABLES)
+    print(f"  {N_CLIPS} clips, {frames} frames loaded in {load_s:.3f} s "
+          f"({frames / load_s:.1f} frames/s; the clips made on the host in {make_s:.3f} s); "
+          f"tables {table_bytes} bytes, memory_allocated {mem0} -> {mem1} "
+          f"(+{mem1 - mem0} bytes) on {card}", flush=True)
+    check(all(bool(torch.isfinite(getattr(lib, k).float()).all()) for k in TABLES),
+          "every table finite")
+    n16 = PLAYBACK_CMP_CLIPS
+    sub = {k: motions[k] for k in list(motions)[:n16]}
+    rows = int(lib.length_starts[n16])
+    cpu_lib = MotionLib(fk_cpu, MotionLibConfig(randomize_heading=True), motion_dict=sub)
+    cpu_lib.load_motions(np.arange(n16), rng=np.random.default_rng(0))
+    gaps = {k: rel_gap(getattr(cpu_lib, k), getattr(lib, k)[:rows])
+            for k in ("gts", "gvs", "gavs", "dvs", "qvel")}
+    gaps["grs"] = quat_gap(cpu_lib.grs, lib.grs[:rows])
+    print("  card vs CPU, first 16 clips: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    check(max(gaps["gts"], gaps["grs"]) <= 5e-3,
+          f"positions and rotations card vs CPU: {gaps['gts']:.3e}, {gaps['grs']:.3e} <= 5e-3")
+    one = MotionLib(fk, MotionLibConfig(randomize_heading=True), motion_dict=sub)
+    chunk, motion_lib._CHUNK = motion_lib._CHUNK, 1   # the per-clip load
+    try:
+        one.load_motions(np.arange(n16), rng=np.random.default_rng(0))
+    finally:
+        motion_lib._CHUNK = chunk
+    per = max(rel_gap(getattr(one, k), getattr(lib, k)[:rows] if getattr(lib, k).shape[0] == frames
+                      else getattr(lib, k)[:n16]) for k in TABLES)
+    check(per <= 1e-6, f"the batched load equals a per-clip load of the first 16 clips on the "
+                       f"card: {per:.3e} <= 1e-6 (every table)")
+    out["load"] = dict(clips=N_CLIPS, frames=frames, seconds=load_s, table_bytes=table_bytes,
+                       allocated_bytes=mem1 - mem0, card_vs_cpu=gaps, batched_vs_per_clip=per)
+
+    # ------------------------------------------------------- 27. sampling
+    print(f"phase 27: get_motion_state and get_motion_state_intervaled at B = {B_MAIN}",
+          flush=True)
+    ids = torch.as_tensor(lib.sample_motion_ids(np.random.default_rng(1), B_MAIN), device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    times = lib.sample_time(g, ids)
+    rates = {}
+    for fn in ("get_motion_state", "get_motion_state_intervaled"):
+        call = getattr(lib, fn)
+        for _ in range(3):
+            call(ids, times)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(SAMPLE_CALLS):
+            st = call(ids, times)
+        torch.cuda.synchronize()
+        el = (time.time() - t0) / SAMPLE_CALLS
+        rates[fn] = dict(seconds_per_call=el, states_per_s=B_MAIN / el)
+        check(all(bool(torch.isfinite(v.float()).all()) for v in st.values()),
+              f"{fn}: {el * 1e3:.3f} ms per call, {B_MAIN / el:.1f} states/s on {card}; finite")
+        ids16 = ids % n16
+        t16 = lib.sample_time(g, ids16)
+        s_card, s_cpu = call(ids16, t16), getattr(cpu_lib, fn)(ids16.cpu(), t16.cpu())
+        gap = max((quat_gap if k in ("root_rot", "rb_rot", "xquat") else rel_gap)(s_cpu[k], s_card[k])
+                  for k in s_cpu)
+        check(gap <= 5e-3, f"{fn} card vs CPU on clips 0-15: {gap:.3e} <= 5e-3")
+        rates[fn]["card_vs_cpu"] = gap
+    out["sampling"] = rates
+
+    # ------------------------------------------------ 28. playback, metrics
+    print(f"phase 28: HumanoidPlayback at {B_MAIN} envs, {PLAY_STEPS} step_autoresets, and "
+          "compute_metrics_lite", flush=True)
+    env = HumanoidPlayback(model, lib)
+    st = env.reset(B_MAIN, torch.Generator(device=dev).manual_seed(0))
+    # env i plays clip i (a reset plays clip (0 + 1) mod n)
+    st.task = PlaybackState(motion_id=torch.arange(B_MAIN, dtype=torch.int32, device=dev) % N_CLIPS,
+                            frame=torch.zeros(B_MAIN, dtype=torch.int32, device=dev))
+    zero = torch.zeros(B_MAIN, model.nu, device=dev)
+    for fn in counted:
+        fn.launches = 0
+    xpos, frame, done = [], [], torch.zeros(B_MAIN, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(PLAY_STEPS):
+        st = env.step_autoreset(st, zero)
+        xpos.append(st.kin.xpos)
+        frame.append(st.task.frame)
+        done |= st.done
+    torch.cuda.synchronize()
+    el = time.time() - t0
+    launches = [fn.launches for fn in counted]
+    play_rate = B_MAIN * PLAY_STEPS / el
+    check(sum(launches) == 0, f"kernels A-E launched {launches} times over the playback "
+                              f"(0 per step_autoreset); {play_rate:.1f} env-steps/s on {card}")
+    check(bool(torch.isfinite(st.obs).all()) and bool((st.reward == 1).all()),
+          "playback obs finite, reward 1")
+    keep = ~done
+    mids = torch.arange(B_MAIN, device=dev)[keep] % N_CLIPS
+    pred = torch.stack(xpos, 1)[keep]                                   # (K,64,J,3)
+    fl = lib.length_starts[mids][:, None].long() + torch.stack(frame, 1)[keep].long()
+    gt = lib.gts[fl]
+    m = compute_metrics_lite(pred, gt)
+    mg = m["mpjpe_g"]
+    first = (mids < n16)
+    lim = {k: PLAYBACK_FK_GAP_MM[k] + FK_GAP_SLACK_MM for k in ("mean", "max")}
+    print(f"  {int(keep.sum())} of {B_MAIN} envs played {PLAY_STEPS} frames without a reset; "
+          f"physics FK vs the library, mpjpe_g mean {mg.mean().item():.4e} max "
+          f"{mg.max().item():.4e} mm over all, mpjpe_pa mean {m['mpjpe_pa'].mean().item():.4e}, "
+          f"vel_dist {m['vel_dist'].mean().item():.4e}, accel_dist "
+          f"{m['accel_dist'].mean().item():.4e} mm, ttr {m['ttr'].float().mean().item():.4f}")
+    check(bool(torch.isfinite(mg).all()) and int(first.sum()) >= n16 // 2,
+          f"metrics finite; {int(first.sum())} of the first {n16} clips compared")
+    f_mean, f_max = mg[first].mean().item(), mg[first].max().item()
+    check(f_mean <= lim["mean"] and f_max <= lim["max"],
+          f"clips 0-15: mpjpe_g mean {f_mean:.4e} <= {lim['mean']:.4e} and max {f_max:.4e} <= "
+          f"{lim['max']:.4e} mm (the JAX package's float64 gap + {FK_GAP_SLACK_MM} mm)")
+    out["playback"] = dict(rate=play_rate, launches=launches, envs_compared=int(keep.sum()),
+                           mpjpe_g_mean=mg.mean().item(), mpjpe_g_max=mg.max().item(),
+                           first16_mean=f_mean, first16_max=f_max,
+                           per_step={n: 0.0 for n in ("chol_solve", "newton_qp")})
+
+    # ----------------------------------------------------- 29. pose fitting
+    print(f"phase 29: PoseFitter on a {FIT_FRAMES}-frame clip (tests/test_fitting.py's camera)",
+          flush=True)
+    cam = CameraParams(full_R=np.eye(3), full_t=np.array([0.0, -1.0, 3.0]),
+                       K=np.array([[1000.0, 0, 960], [0, 1000.0, 540], [0, 0, 1.0]]))
+    rng = np.random.default_rng(1)
+    true = np.zeros((FIT_FRAMES, 1, 3 + 24 * 3))
+    true[..., 2] = 0.95
+    true[..., 3:] += rng.normal(size=(FIT_FRAMES, 1, 24 * 3)) * 0.1
+    init = true + rng.normal(size=true.shape) * 0.05
+    fitter = PoseFitter(HumanoidBatchFK.from_robot_model(model, filter_vel=False), cam)
+    tv = torch.as_tensor(true, dtype=torch.float32, device=dev)
+    fitter.set_targets(fitter.proj2d(fitter.fk_from_vec(tv)))
+    iv = torch.as_tensor(init, dtype=torch.float32, device=dev)
+    fitter.fit(iv, steps=2)                     # warm-up: the first backward's set-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    vec, losses = fitter.fit(iv, steps=100, lr=0.01)
+    torch.cuda.synchronize()
+    fit100 = time.time() - t0
+    ratio = (fitter.proj_2d_loss(vec) / fitter.proj_2d_loss(iv)).item()
+    check(bool(torch.isfinite(losses).all()) and ratio < 0.2,
+          f"fit(steps=100, lr=0.01) in {fit100:.3f} s on {card}: final / initial "
+          f"proj_2d_loss {ratio:.4f} < 0.2")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    vec, losses = fitter.fit(iv)
+    torch.cuda.synchronize()
+    fit_def = time.time() - t0
+    print(f"  fit() at its defaults (200 steps, lr 0.02): {fit_def:.3f} s, final / initial "
+          f"{(losses[-1] / losses[0]).item():.4f}", flush=True)
+    f64 = []
+    for d in (dev, torch.device("cpu")):
+        m64 = registry.default_humanoid(torch.float64, device=d)
+        fitter = PoseFitter(HumanoidBatchFK.from_robot_model(m64, filter_vel=False), cam)
+        tv = torch.as_tensor(true, device=d)
+        fitter.set_targets(fitter.proj2d(fitter.fk_from_vec(tv)))
+        f64.append(fitter.fit(torch.as_tensor(init, device=d), steps=5, lr=0.01))
+    gap = max(rel_gap(f64[1][i], f64[0][i]) for i in range(2))
+    check(gap <= 1e-9, f"float64 fit(steps=5): losses and vector card vs CPU {gap:.3e} <= 1e-9")
+    out["fit"] = dict(seconds_100=fit100, ratio_100=ratio, seconds_default=fit_def,
+                      card_vs_cpu_f64=gap)
+
+    # ----------------------------------------------------------- 30. poselib
+    print("phase 30: poselib on the first 16 clips of phase 26", flush=True)
+    tree = SkeletonTree.from_robot_model(model)
+    aa = lib._motion_aa[:rows].reshape(rows, 24, 3)
+    local = T.exp_map_to_quat(aa)[:, list(fk.smpl_2_mujoco)]
+    root = lib.gts[:rows, 0]
+    s_loc = SkeletonState.from_rotation_and_root_translation(tree, local, root)
+    s_glob = SkeletonState.from_rotation_and_root_translation(tree, lib.grs[:rows], root,
+                                                              is_local=False)
+    g_loc = (s_loc.global_translation - lib.gts[:rows]).abs().max().item()
+    g_glob = (s_glob.global_translation - lib.gts[:rows]).abs().max().item()
+    check(g_loc <= 1e-5, f"SkeletonState global_translation from the clips' local rotations vs "
+                         f"HumanoidBatchFK's over {rows} frames: {g_loc:.3e} m <= 1e-5 m")
+    # from the library's global rotations: two float32 chains (the library's
+    # FK, then poselib's local conversion and FK), printed
+    print(f"  from the library's global rotations (global -> local -> FK): {g_glob:.3e} m",
+          flush=True)
+    out["poselib"] = dict(frames=rows, from_local=g_loc, from_global=g_glob)
+    return out
+
+
+def tf32_readings(model, cpu_model, env, gen, action, engine, substep, constraints,
+                  control) -> dict:
+    """Phase 4b: phase 4's card-vs-CPU check (16 envs from a fresh reset, 2
+    control steps at half-scale actions) with the process at TF32, through
+    engine.control_step (pinned to full float32) and through the inner
+    loop engine.control_step calls, substep.control_loop (not pinned); the
+    pinned run again at "highest" beside them, and pinned once more with
+    TF32 set through torch.backends.cuda.matmul.fp32_precision instead of
+    the legacy call. Restores "highest"."""
+    n = 16
+    fresh = env.reset(n, gen)
+    acts = [0.5 * action(n) for _ in range(2)]
+    K = min(QP["qp_rows"], constraints.NEFC)
+
+    def run(m, st, cache, pinned):
+        for a in acts:
+            a = a.to(st.qpos.device)
+            if pinned:
+                st, _, _, cache = engine.control_step(m, st, a, CFI, cache, **QP)
+            else:
+                out = substep.control_loop(
+                    m, st.qpos, st.qvel, *cache, control.pd_target_from_action(m, a),
+                    engine.reset_reference(m), CFI, QP["qp_iters"], K, QP["qp_tol"], None)
+                st, cache = engine.PhysicsState(out[0], out[1]), out[2:5]
+        return st.qpos.cpu()
+
+    cpu_st = engine.PhysicsState(fresh.phys.qpos.cpu(), fresh.phys.qvel.cpu())
+    q_cpu = run(cpu_model, cpu_st, tuple(x.cpu() for x in fresh.pd_cache), True)
+    gap = lambda q: ((q - q_cpu).abs() / (1.0 + q_cpu.abs())).amax().item()
+    try:
+        q_hi = run(model, fresh.phys, fresh.pd_cache, True)
+        torch.set_float32_matmul_precision("high")
+        q_pin = run(model, fresh.phys, fresh.pd_cache, True)
+        q_unpin = run(model, fresh.phys, fresh.pd_cache, False)
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+        q_pin_new = run(model, fresh.phys, fresh.pd_cache, True)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    return dict(pinned=gap(q_pin), unpinned=gap(q_unpin), pinned_new_api=gap(q_pin_new),
+                pinned_vs_highest=(q_pin - q_hi).abs().max().item(),
+                pinned_new_api_vs_highest=(q_pin_new - q_hi).abs().max().item())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -1728,6 +2047,24 @@ def main() -> None:
                                                       cache_cpu, **QP)
     diff = ((st_gpu.qpos.cpu() - st_cpu.qpos).abs() / (1.0 + st_cpu.qpos.abs())).amax().item()
     check(diff <= 5e-3, f"qpos card vs CPU after 2 control steps: {diff:.3e} <= 5e-3")
+
+    # -------------------------------------- 4b. card vs CPU under TF32 ("high")
+    print("phase 4b: card vs CPU with the process at torch.set_float32_matmul_precision('high')",
+          flush=True)
+    tf32 = tf32_readings(model, cpu_model, env, gen, action, engine, substep, constraints,
+                         control)
+    check(tf32["pinned"] <= 5e-3,
+          f"qpos card vs CPU after 2 control steps, the process at TF32 ('high'), through "
+          f"engine.control_step (pinned): {tf32['pinned']:.3e} <= 5e-3 (phase 4: {diff:.3e})")
+    check(tf32["pinned_new_api"] <= 5e-3,
+          f"the same with TF32 set through torch.backends.cuda.matmul.fp32_precision: "
+          f"{tf32['pinned_new_api']:.3e} <= 5e-3")
+    print(f"  the same two control steps through the unpinned substep.control_loop under TF32: "
+          f"{tf32['unpinned']:.3e} (not gated); pinned under TF32 vs pinned at 'highest' on the "
+          f"card: {tf32['pinned_vs_highest']:.3e} (legacy call), "
+          f"{tf32['pinned_new_api_vs_highest']:.3e} (fp32_precision)", flush=True)
+    check(torch.get_float32_matmul_precision() == "highest" and
+          not torch.backends.cuda.matmul.allow_tf32, "the process setting restored")
 
     # ------------------------------ 5. kernels C and D vs plain, torque path
     print("phase 5: kernels C and D against their plain versions (torque path)", flush=True)
@@ -2257,6 +2594,7 @@ def main() -> None:
     report["beta"], report["smplx"] = bp["beta"], bp["smplx"]
     s7 = slice7_paths(model, dev, counted, card, rate, gen)
     report.update(s7["report"])
+    mp = motion_paths(model, dev, counted, card)
 
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
@@ -2264,7 +2602,8 @@ def main() -> None:
     d_names = list(d_cases)
     runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run, "beta": bp["b_run"],
              "smplx": bp["x_run"], "aba_route": s7["aba"], "aba_dense": s7["aba_dense"],
-             "nv_gym": s7["nv"], "domain_rand": s7["dr"], "move": s7["move"]}
+             "nv_gym": s7["nv"], "domain_rand": s7["dr"], "move": s7["move"],
+             "playback": mp["playback"]}
     names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
     ball = dict(zip(names, l_hit))
     x64 = dict(zip(names, bp["x64_launches"]))
@@ -2276,7 +2615,8 @@ def main() -> None:
         path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, 18's
         two PPO iterations and eval rollout, 19's plan, 20's β batch and
         21's SMPLX runs (its float64 step too), 22's two routes, 23's
-        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs."""
+        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs, and
+        28's playback (no launch)."""
         new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
         return dict(
             launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name],
@@ -2345,9 +2685,17 @@ def main() -> None:
           f"{bp['b_run']['rate']:.1f}, SMPLX {bp['x_run']['rate']:.1f} env-steps/s; ABA route "
           f"{s7['aba']['rate']:.1f} beside dense {s7['aba_dense']['rate']:.1f}, NvHumanoid "
           f"{s7['nv']['rate']:.1f}, DomainRandEnv {s7['dr']['rate']:.1f}, HumanoidMove "
-          f"{s7['move']['rate']:.1f} env-steps/s", flush=True)
+          f"{s7['move']['rate']:.1f} env-steps/s; motion library: {mp['load']['frames']} frames "
+          f"loaded in {mp['load']['seconds']:.3f} s ({mp['load']['table_bytes']} bytes of tables), "
+          f"{mp['sampling']['get_motion_state']['states_per_s']:.1f} states/s blended, "
+          f"{mp['sampling']['get_motion_state_intervaled']['states_per_s']:.1f} nearest; "
+          f"playback {mp['playback']['rate']:.1f} env-steps/s, physics FK vs library mpjpe_g "
+          f"mean {mp['playback']['mpjpe_g_mean']:.4e} max {mp['playback']['mpjpe_g_max']:.4e} mm; "
+          f"fit {mp['fit']['seconds_100']:.3f} s (100 steps, ratio {mp['fit']['ratio_100']:.4f}), "
+          f"{mp['fit']['seconds_default']:.3f} s (200); TF32 card vs CPU pinned "
+          f"{tf32['pinned']:.3e}, unpinned {tf32['unpinned']:.3e}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels, "card": card}))
+    print(json.dumps({"kernels": kernels, "card": card, "motion": mp, "tf32": tf32}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

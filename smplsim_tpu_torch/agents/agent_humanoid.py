@@ -174,9 +174,10 @@ class AgentHumanoid:
         """Mean-action (or sampled, with stochastic) eval rollouts of
         n_episodes envs with env.step; an env stops accruing return and
         length once it is done. record_path: dump qpos, qvel, reward and
-        done per step, (n_episodes, horizon, ...), to a joblib pkl."""
-        if render_path:
-            raise NotImplementedError("render_path: the renderer is not ported yet")
+        done per step, (n_episodes, horizon, ...), to a joblib pkl.
+        render_path: draw episode 0's qpos, every second step, to a GIF (or
+        an mp4 by the extension) with render.render_rollout (needs
+        matplotlib and imageio)."""
         ts = self.state if self.state is not None else self.load_checkpoint(self.cfg.epoch)
         env, m = self.env, self.model
         gen = torch.Generator(device=m.device).manual_seed(self.cfg.seed + 1)
@@ -196,11 +197,17 @@ class AgentHumanoid:
                 for k, v in (("qpos", st.phys.qpos), ("qvel", st.phys.qvel),
                              ("reward", st.reward), ("done", st.done)):
                     rec[k].append(v)
+            elif render_path:
+                rec["qpos"].append(st.phys.qpos)
         if record_path:
             import joblib
 
             joblib.dump({k: torch.stack(v, 1).cpu().numpy() for k, v in rec.items()},
                         record_path)
+        if render_path:
+            from smplsim_tpu_torch.render import render_rollout
+
+            render_rollout(m, torch.stack(rec["qpos"], 1)[0], render_path, every=2)
         out = {
             "eval_return_mean": ret.mean().item(),
             "eval_return_std": ret.std(correction=0).item(),

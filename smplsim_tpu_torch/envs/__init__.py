@@ -1,7 +1,7 @@
 from smplsim_tpu_torch.envs.base import EnvConfig, EnvState, HumanoidEnv
 from smplsim_tpu_torch.envs.domain_rand import (DomainRandConfig, DomainRandEnv, NoiseSpec,
                                                 randomize_model)
-from smplsim_tpu_torch.envs.legacy import HumanoidMove, MoveConfig
+from smplsim_tpu_torch.envs.legacy import HumanoidMove, HumanoidPlayback, MoveConfig, PlaybackState
 from smplsim_tpu_torch.envs.nv import BodyHistory, NvConfig, NvHumanoid
 from smplsim_tpu_torch.envs.tasks import (TASKS, GetupConfig, GetupTask, HumanoidGetup,
                                           HumanoidReach, HumanoidSpeed, ReachConfig, ReachTask,
@@ -10,6 +10,6 @@ from smplsim_tpu_torch.envs.vector import GymVectEnv
 
 __all__ = ["BodyHistory", "DomainRandConfig", "DomainRandEnv", "EnvConfig", "EnvState",
            "GetupConfig", "GetupTask", "GymVectEnv", "HumanoidEnv", "HumanoidGetup",
-           "HumanoidMove", "HumanoidReach", "HumanoidSpeed", "MoveConfig", "NoiseSpec",
-           "NvConfig", "NvHumanoid", "ReachConfig", "ReachTask", "SpeedConfig", "SpeedTask",
+           "HumanoidMove", "HumanoidPlayback", "HumanoidReach", "HumanoidSpeed", "MoveConfig", "NoiseSpec",
+           "NvConfig", "NvHumanoid", "PlaybackState", "ReachConfig", "ReachTask", "SpeedConfig", "SpeedTask",
            "TASKS", "randomize_model"]

@@ -41,6 +41,9 @@ per env carries a per-env physical realization in the caller's state
 it. Its Fall pool is simulated on the bodies repeated in order (a pool
 size that N divides), and env i resets from the pool states of its own
 body.
+
+`reset`, `step` and `step_autoreset` run with full-float32 matrix products
+whatever the process's setting (physics/precision.py).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from smplsim_tpu_torch.envs import obs as obs_mod
 from smplsim_tpu_torch.models.spec import RobotModel, check_batch, tile_model
 from smplsim_tpu_torch.physics import constraints, engine, kinematics, solver
 from smplsim_tpu_torch.physics.engine import PhysicsState
+from smplsim_tpu_torch.physics.precision import ieee_fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,6 +315,7 @@ class HumanoidEnv:
             raise NotImplementedError(f"self_obs_v {cfg.self_obs_v}")
         return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
 
+    @ieee_fp32()
     def reset(self, batch: int, generator: torch.Generator,
               model: RobotModel | None = None) -> EnvState:
         """Fresh states for `batch` envs: task first, then the humanoid; in
@@ -342,6 +347,7 @@ class HumanoidEnv:
         recomputed (the JAX package's `reset_ref=None`)."""
         return self._reset_ref if model is self.model else engine.reset_reference(model)
 
+    @ieee_fp32()
     def step(self, state: EnvState, action: torch.Tensor,
              model: RobotModel | None = None) -> EnvState:
         """One control step of every env; `model` as in `reset`."""
@@ -378,6 +384,7 @@ class HumanoidEnv:
                   "stalled": lean.stalled_any},
             pd_cache=cache, kin=kin, rng=state.rng)
 
+    @ieee_fp32()
     def step_autoreset(self, state: EnvState, action: torch.Tensor,
                        model: RobotModel | None = None) -> EnvState:
         """Step, then reset every env that finished (terminated or

@@ -41,6 +41,7 @@ from smplsim_tpu_torch.envs.base import EnvConfig, EnvState, HumanoidEnv
 from smplsim_tpu_torch.models.spec import RobotModel, check_batch
 from smplsim_tpu_torch.physics import engine, kinematics
 from smplsim_tpu_torch.physics.engine import PhysicsState
+from smplsim_tpu_torch.physics.precision import ieee_fp32
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +338,7 @@ class NvHumanoid(HumanoidEnv):
         return torch.where(active, origin, pos), torch.where(active, v_new, vel)
 
     # ------------- overrides -------------
+    @ieee_fp32()
     def reset(self, batch: int, generator: torch.Generator,
               model: RobotModel | None = None) -> EnvState:
         state = super().reset(batch, generator, model)
@@ -356,6 +358,7 @@ class NvHumanoid(HumanoidEnv):
                                                      .contiguous()))
         return state
 
+    @ieee_fp32()
     def step(self, state: EnvState, action: torch.Tensor,
              model: RobotModel | None = None) -> EnvState:
         cfg: NvConfig = self.config

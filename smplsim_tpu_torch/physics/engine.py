@@ -33,6 +33,10 @@ the derivative rules of physics/linalg.py and ops/qp.py, with ext_force
 and the projectiles as in the spine. The spine's kernels raise on a
 tangent. The torque and default modes run the per-env
 composition already. Reverse mode is not implemented.
+
+Every entry point here runs with full-float32 matrix products whatever the
+process's float32 matmul setting (physics/precision.py), as the JAX package
+pins `jax_default_matmul_precision`.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from torch.autograd import forward_ad
 from smplsim_tpu_torch.models.spec import ARRAY_FIELDS, RobotModel
 from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinematics, solver
 from smplsim_tpu_torch.physics.control import pd_target_from_action, torque_ctrl
+from smplsim_tpu_torch.physics.precision import ieee_fp32
 from smplsim_tpu_torch.physics.substep import _bad, control_loop
 
 
@@ -78,6 +83,7 @@ def init_state(model: RobotModel, batch: int = 1) -> PhysicsState:
                                           device=qpos.device))
 
 
+@ieee_fp32()
 def forward(model: RobotModel, state: PhysicsState, ctrl: torch.Tensor, f_warm=None,
             qp_iters=None, qp_rows=None, qp_tol=None, keeps=None) -> StepInfo:
     """Accelerations and constraint forces at the current state under joint
@@ -91,6 +97,7 @@ def forward(model: RobotModel, state: PhysicsState, ctrl: torch.Tensor, f_warm=N
     return StepInfo(kin=kin, smooth=smooth, efc=efc, sol=sol)
 
 
+@ieee_fp32()
 def step(model: RobotModel, state: PhysicsState, ctrl: torch.Tensor, **knobs):
     """One physics substep (mj_step) under joint torques ctrl (B,nu), cold
     contact start. Returns (state', StepInfo)."""
@@ -100,12 +107,14 @@ def step(model: RobotModel, state: PhysicsState, ctrl: torch.Tensor, **knobs):
     return PhysicsState(qpos, qvel), info
 
 
+@ieee_fp32()
 def pd_cache(model: RobotModel, state: PhysicsState):
     """(M, C) at the current state (mj_forward at reset)."""
     kin = kinematics.fk(model, state.qpos)
     return dynamics.mass_matrix(model, kin), dynamics.bias_forces(model, kin, state.qvel)
 
 
+@ieee_fp32()
 def reset_reference(model: RobotModel):
     """(qpos0, qvel0, M, C): the target of the bad-state reset, with a batch
     dim of 1 for a shared model and of N for a stacked one (each body's
@@ -116,6 +125,7 @@ def reset_reference(model: RobotModel):
     return q0, v0, M, C
 
 
+@ieee_fp32()
 def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
                  control_freq_inv: int = 15, cache=None, reset_ref=None,
                  qp_iters=None, qp_rows=None, qp_tol=None, keeps=None,

@@ -92,8 +92,12 @@ def test_run_policy(tmp_path):
     # the mean action is deterministic; a sampled one differs
     assert agent.run_policy(n_episodes=2, horizon=3) == {k: out[k] for k in out}
     assert agent.run_policy(n_episodes=2, horizon=3, stochastic=True) != out
-    with pytest.raises(NotImplementedError):
-        agent.run_policy(n_episodes=1, horizon=1, render_path=str(tmp_path / "x.gif"))
+    # render_path draws episode 0 every second step: frames 0 and 2 of 3
+    import imageio.v2 as imageio
+
+    gif = str(tmp_path / "x.gif")
+    agent.run_policy(n_episodes=1, horizon=3, render_path=gif)
+    assert len(imageio.mimread(gif)) == 2
 
 
 def test_run_main_trains_then_evaluates(tmp_path, monkeypatch):

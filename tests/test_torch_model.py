@@ -152,6 +152,35 @@ def test_control_step_runs_without_importing_jax():
         "assert ts.epoch == 1\n"
         "cem = CEMPlanner(env, CEMConfig(horizon=1, num_samples=2, num_elites=1, iterations=1))\n"
         "assert torch.isfinite(cem.plan(env.reset(1, g), generator=g)[2])\n"
+        # the motion library and its FK, playback, the metrics, the
+        # converter, poselib, the fitter and the renderer's FK
+        "import numpy as np, sys as _s\n"
+        "_s.path.insert(0, 'tests')\n"
+        "from _torch_synthetic_motion import motion_set\n"
+        "from smplsim_tpu_torch.motion import (HumanoidBatchFK, MotionLib, MotionLibConfig, "
+        "PoseFitter, CameraParams, SMPLConverter, normalize_smpl_pose)\n"
+        "from smplsim_tpu_torch.envs import HumanoidPlayback\n"
+        "from smplsim_tpu_torch.eval import compute_metrics_lite\n"
+        "from smplsim_tpu_torch.poselib import SkeletonState, SkeletonTree, visualization\n"
+        "from smplsim_tpu_torch import render\n"
+        "fk = HumanoidBatchFK.from_robot_model(m)\n"
+        "lib = MotionLib(fk, MotionLibConfig(), motion_dict=motion_set(2, min_len=5, "
+        "max_len=6)).load_motions()\n"
+        "st_m = lib.get_motion_state(torch.tensor([0, 1]), torch.tensor([0.05, 0.1]))\n"
+        "pb = HumanoidPlayback(m, lib)\n"
+        "s3 = pb.step_autoreset(pb.reset(1, g), z)\n"
+        "r = compute_metrics_lite(lib.gts[None, :4].double(), lib.gts[None, 1:5].double())\n"
+        "assert torch.isfinite(s3.obs).all() and r['mpjpe_g'].shape == (1, 4, 24)\n"
+        "assert SMPLConverter(m, m).get_new_jkp().shape == (69,)\n"
+        "tree = SkeletonTree.from_robot_model(m)\n"
+        "assert SkeletonState(tree, lib.grs[:2], lib.gts[:2, 0]).global_translation.shape "
+        "== (2, 24, 3)\n"
+        "cam = CameraParams(np.eye(3), np.array([0.0, -1.0, 3.0]), np.array([[1000.0, 0, "
+        "960], [0, 1000.0, 540], [0, 0, 1.0]]))\n"
+        "fit = PoseFitter(fk, cam)\n"
+        "v = torch.zeros(2, 1, 75, dtype=torch.float64); v[..., 2] = 0.95\n"
+        "fit.set_targets(fit.proj2d(fit.fk_from_vec(v)))\n"
+        "assert torch.isfinite(fit.fit(v, steps=2)[1]).all()\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'optax', 'orbax', 'smplsim_tpu')]\n"
         "assert not bad, bad\n"
