@@ -252,11 +252,38 @@ Phases (any failure exits non-zero):
  30. poselib on the first 16 clips of phase 26: SkeletonState from the
      clips' local rotations, its global_translation within 1e-5 m of
      HumanoidBatchFK's; from the library's global rotations, printed.
+ 31. the sharded PPO step (parallel.sharded_ppo_step) at a world of 1 over
+     NCCL in this process (init_process_group at a file:// rendezvous):
+     PPOConfig() on HumanoidSpeed at the default QP, one iteration, 960
+     chol_solve + 480 newton_qp and no C, D or E; every tensor of the
+     TrainState (generators, nets, Adam states, running norm, env states)
+     and the six metrics equal bit for bit to rollout + update (no group)
+     from the derived local TrainState (parallel.rollout.local_train_state)
+     of a second, identical init; seconds per iteration beside phase 18's;
+ 32. two ranks in processes started with the spawn method
+     (parallel.mesh.run_ranks; the kernels built by this process first) on
+     the one card over gloo (NCCL takes no two ranks on one device):
+     PPOConfig() with 512 envs per rank, 2 iterations of the sharded step,
+     each 960 + 480 launches per rank; the six metrics equal on both ranks;
+     the trainer's generator, every parameter, Adam moment and the running
+     norm bit-identical across the ranks (SHA-256 of every tensor); seconds
+     per iteration and the training env-steps/s summed over the ranks;
+     then the float64 PPO.update(group=) of phase 18 (widths (64, 64), 2
+     ranks x 32 of the 64 envs) on the card and on the CPU in the same
+     world, within 1e-9 relative;
+ 33. CEMPlanner(HumanoidGetup, CEMConfig(num_samples=64)).plan(group=) at
+     the same 2 ranks from the same Fall reset, each rank's samples from
+     fold_in(generator, rank): 720 chol_solve + 360 newton_qp per rank;
+     both ranks' first action, mean and best cost equal bit for bit; the
+     best cost at most the zero-action rollout's; seconds per plan beside
+     phase 19's. A rank that fails, dies or outlives RANKS_TIMEOUT kills
+     both and fails the run.
 
 Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
 19's plan, 20's and 21's runs, 21's float64 step, 22's two runs, 23's,
-24's, 25's and 28's runs each set every launch count to 0 just before and
-read them just after. The third-to-last line is the `kernels` JSON object, the
+24's, 25's and 28's runs, 31's iteration, and each rank's iterations in 32
+and plan in 33 each set every launch count to 0 just before and read them
+just after. The third-to-last line is the `kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -274,6 +301,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import forward_ad
 
 B_MAIN = 4096
@@ -324,6 +352,12 @@ PLAY_STEPS = 64
 FIT_FRAMES = 300
 PLAYBACK_FK_GAP_MM = {"mean": 2e-13, "max": 2e-12}
 FK_GAP_SLACK_MM = 1e-2
+# phases 31-33: ranks of the gloo world on the one card, its iterations,
+# each rank's CEM samples, the seconds the world may take
+SHARDED_WORLD = 2
+SHARDED_ITERS = 2
+CEM_RANK_SAMPLES = 64
+RANKS_TIMEOUT = 900
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 outside the
 # tensor cores, float64 on them (the card's top rate for the type; 34e12
 # outside them)
@@ -1076,11 +1110,9 @@ def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> 
     run and read just after. Returns the launch counts and times."""
     from smplsim_tpu_torch.agents import AgentHumanoid
     from smplsim_tpu_torch.control import CEMPlanner
-    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed
-    from smplsim_tpu_torch.learning.nets import gaussian_log_prob
-    from smplsim_tpu_torch.learning.ppo import PPO, state_tensors
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup
+    from smplsim_tpu_torch.learning.ppo import state_tensors
     from smplsim_tpu_torch.learning.running_norm import normalize
-    from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import qp
 
     # ------------------------------------------------ 18. the PPO trainer
@@ -1155,39 +1187,7 @@ def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> 
     t_report["full_rows"] = t_inputs["full_rows"]
     tmp.cleanup()
     # the update, card vs CPU in float64, on one numpy-made trajectory
-    sides = []
-    for d in (dev, torch.device("cpu")):
-        m64 = registry.default_humanoid(torch.float64, device=d)
-        sides.append((PPO(HumanoidSpeed(m64), ucfg), d))
-    nobs_dim = sides[0][0].env.obs_size
-    rs = np.random.RandomState(0)
-    n_u = ucfg.horizon * ucfg.num_envs
-    shp = (ucfg.horizon, ucfg.num_envs)
-    done_np = rs.rand(*shp) < 0.1
-    obs_np = rs.randn(*shp, nobs_dim)
-    init_states = [ppo_.init(0) for ppo_, _ in sides]      # the same nets on both
-    with torch.no_grad():
-        # actions about the initial policy's mean, logp its own plus noise:
-        # some ratios leave the clip range
-        mu, ls = init_states[1].policy(torch.as_tensor(obs_np))
-        act = mu + ls.exp() * torch.as_tensor(rs.randn(*shp, model.nu))
-        logp = gaussian_log_prob(mu, ls, act).numpy() + 0.3 * rs.randn(*shp)
-    traj_np = dict(obs=obs_np, action=act.numpy(), logp=logp, reward=rs.rand(*shp),
-                   done=done_np, terminated=done_np & (rs.rand(*shp) < 0.5),
-                   nactive=rs.randint(0, 64, shp), overflow=rs.rand(*shp) < 0.2,
-                   stalled=rs.rand(*shp) < 0.1)
-    last_np = rs.randn(ucfg.num_envs, nobs_dim)
-    perms_np = np.stack([rs.permutation(n_u) for _ in range(ucfg.opt_num_epochs)])
-    results = []
-    for (ppo_, d), uts in zip(sides, init_states):
-        tr = {k: torch.as_tensor(v, device=d) for k, v in traj_np.items()}
-        t0 = time.time()
-        uts, umet = ppo_.update(uts, SimpleNamespace(obs=torch.as_tensor(last_np, device=d)),
-                                tr, perms=torch.as_tensor(perms_np, device=d))
-        sync()
-        results.append((state_tensors(uts, env=False), time.time() - t0))
-    upd_err = max(((a.cpu().double() - b.double()).abs() / (1.0 + b.double().abs())).max().item()
-                  for a, b in zip(results[0][0], results[1][0]) if a.is_floating_point())
+    upd_err = update_card_vs_cpu(ucfg, 0, 1, None, (dev, torch.device("cpu")))
     check(upd_err <= 1e-9, f"PPO update card vs CPU in float64 (widths {ucfg.policy_widths}, "
                            f"{ucfg.opt_num_epochs} x {ucfg.num_minibatches} minibatch steps): "
                            f"parameters, Adam moments and running norm within {upd_err:.3e} "
@@ -1932,6 +1932,314 @@ def tf32_readings(model, cpu_model, env, gen, action, engine, substep, constrain
                 pinned_new_api_vs_highest=(q_pin_new - q_hi).abs().max().item())
 
 
+def update_card_vs_cpu(ucfg, rank: int, world: int, group, devs) -> float:
+    """Phase 18's float64 PPO.update on one numpy-made trajectory (the same
+    nets and permutations on every device of devs), card vs CPU: the
+    largest relative gap of the parameters, Adam moments and running norm.
+    With a group, each of its ranks updates its own columns of the global
+    trajectory with permutations drawn by RandomState(rank)."""
+    from smplsim_tpu_torch.envs import HumanoidSpeed
+    from smplsim_tpu_torch.learning.nets import gaussian_log_prob
+    from smplsim_tpu_torch.learning.ppo import PPO, state_tensors
+    from smplsim_tpu_torch.models import registry
+
+    sides = []
+    for d in devs:
+        m64 = registry.default_humanoid(torch.float64, device=d)
+        sides.append(PPO(HumanoidSpeed(m64), ucfg))
+    nobs_dim, nu = sides[0].env.obs_size, sides[0].env.action_size
+    rs = np.random.RandomState(0)
+    shp = (ucfg.horizon, ucfg.num_envs)
+    done_np = rs.rand(*shp) < 0.1
+    obs_np = rs.randn(*shp, nobs_dim)
+    init_states = [ppo_.init(0) for ppo_ in sides]      # the same nets on both
+    with torch.no_grad():
+        # actions about the initial policy's mean, logp its own plus noise:
+        # some ratios leave the clip range
+        mu, ls = init_states[-1].policy(torch.as_tensor(obs_np))
+        act = mu + ls.exp() * torch.as_tensor(rs.randn(*shp, nu))
+        logp = gaussian_log_prob(mu, ls, act).numpy() + 0.3 * rs.randn(*shp)
+    traj_np = dict(obs=obs_np, action=act.numpy(), logp=logp, reward=rs.rand(*shp),
+                   done=done_np, terminated=done_np & (rs.rand(*shp) < 0.5),
+                   nactive=rs.randint(0, 64, shp), overflow=rs.rand(*shp) < 0.2,
+                   stalled=rs.rand(*shp) < 0.1)
+    last_np = rs.randn(ucfg.num_envs, nobs_dim)
+    b = ucfg.num_envs // world
+    cols = slice(rank * b, (rank + 1) * b)
+    n_u = ucfg.horizon * b
+    perms_np = np.stack([np.random.RandomState(rank).permutation(n_u) if group is not None
+                         else rs.permutation(n_u) for _ in range(ucfg.opt_num_epochs)])
+    results = []
+    for ppo_, uts, d in zip(sides, init_states, devs):
+        tr = {k: torch.as_tensor(v[:, cols], device=d) for k, v in traj_np.items()}
+        uts, _ = ppo_.update(uts, SimpleNamespace(obs=torch.as_tensor(last_np[cols], device=d)),
+                             tr, perms=torch.as_tensor(perms_np, device=d), group=group)
+        results.append(state_tensors(uts, env=False))
+    return max(((a.cpu().double() - b_.double()).abs() / (1.0 + b_.double().abs())).max().item()
+               for a, b_ in zip(results[0], results[1]) if a.is_floating_point())
+
+
+def state_digests(ts) -> list:
+    """SHA-256 of every tensor of a TrainState but its env states (the
+    trainer's generator, nets, Adam states, running norm): two ranks hold
+    the same values bit for bit where these agree."""
+    import hashlib
+
+    from smplsim_tpu_torch.learning.ppo import state_tensors
+
+    return [hashlib.sha256(t.cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+                           ).hexdigest() for t in state_tensors(ts, env=False)]
+
+
+def time_halves(ppo, sync) -> dict:
+    """Wrap ppo.rollout and ppo.update on the instance so that the wall
+    seconds of each, synchronized, add up in the returned dict."""
+    secs = {"rollout": 0.0, "update": 0.0}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            sync()
+            secs[name] += time.time() - t0
+            return out
+        return run
+
+    ppo.rollout, ppo.update = timed("rollout", ppo.rollout), timed("update", ppo.update)
+    return secs
+
+
+def allreduce_ms(ts, mesh, reps: int = 10) -> dict:
+    """Milliseconds of one gradient average (parallel.mesh.pmean of a
+    flattened buffer of each net's parameter count) over the mesh's group,
+    on its device: PPO.update makes one per net and minibatch step."""
+    from smplsim_tpu_torch.parallel import mesh as pm
+
+    out = {}
+    for name, net in (("policy", ts.policy), ("value", ts.value)):
+        buf = torch.ones(sum(p.numel() for p in net.parameters()), device=mesh.device)
+        pm.pmean(buf, mesh.group)
+        dist.barrier(mesh.group)
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.time()
+        for _ in range(reps):
+            pm.pmean(buf, mesh.group)
+        torch.cuda.synchronize(mesh.device)
+        out[name] = (time.time() - t0) / reps * 1e3
+        out[f"{name}_floats"] = buf.numel()
+    return out
+
+
+def rank_phases(rank: int, world: int, store: str, cfi: int, ucfg) -> dict:
+    """One rank of phases 32 and 33, in its own process on the one card,
+    over gloo: the sharded PPO step at PPOConfig() (num_envs global),
+    SHARDED_ITERS iterations; phase 18's float64 update (ucfg) with the
+    group, card vs CPU; a sharded CEMConfig() plan of CEM_RANK_SAMPLES
+    samples. Every launch count set to 0 just before each counted run and
+    read just after."""
+    from smplsim_tpu_torch.control import CEMConfig, CEMPlanner
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup, HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.learning.ppo import PPO, PPOConfig
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.ops import _build, linalg, qp
+    from smplsim_tpu_torch.parallel import mesh as pm
+    from smplsim_tpu_torch.parallel import rollout as pr
+
+    _build.build_all()       # built by the parent: loads them
+    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp,
+               linalg.cholesky)
+    pm.init_distributed(store, world, rank, backend="gloo")
+    try:
+        mesh = pm.data_mesh()
+        dev = mesh.device
+        sync = lambda: torch.cuda.synchronize(dev)
+        out = dict(backend=dist.get_backend(mesh.group), device=str(dev), iterations=[])
+        # ----------------------------------------------- 32. sharded PPO step
+        model = registry.default_humanoid(torch.float32, device=dev)
+        ppo = PPO(HumanoidSpeed(model, SpeedConfig()), PPOConfig())
+        step, ts = pr.sharded_ppo_step(ppo, mesh, ppo.init(0))
+        out["envs"] = ts.env_states.obs.shape[0]
+        halves = time_halves(ppo, sync)
+        for _ in range(SHARDED_ITERS):
+            for fn in counted:
+                fn.launches = 0
+            halves.update(rollout=0.0, update=0.0)
+            dist.barrier(mesh.group)
+            sync()
+            t0 = time.time()
+            ts, metrics = step(ts)
+            sync()
+            out["iterations"].append(dict(
+                seconds=time.time() - t0, launches=[fn.launches for fn in counted],
+                metrics={k: float(v) for k, v in metrics.items()}, **halves))
+        out["digests"] = state_digests(ts)
+        out["allreduce_ms"] = allreduce_ms(ts, mesh)
+        out["epoch"] = ts.epoch
+        out["finite"] = all(bool(torch.isfinite(p).all()) for net in (ts.policy, ts.value)
+                            for p in net.parameters())
+        out["update_gap"] = update_card_vs_cpu(ucfg, rank, world, mesh.group,
+                                               (dev, torch.device("cpu")))
+        # ------------------------------------------------ 33. sharded CEM plan
+        cenv = HumanoidGetup(model, GetupConfig(control_frequency_inv=cfi))
+        ccfg = CEMConfig(num_samples=CEM_RANK_SAMPLES)
+        planner = CEMPlanner(cenv, ccfg)
+        cstate = cenv.reset(1, torch.Generator(device=dev).manual_seed(3))
+        gen = pm.fold_in(torch.Generator(device=dev).manual_seed(4), rank)
+        for fn in counted:
+            fn.launches = 0
+        dist.barrier(mesh.group)
+        sync()
+        t0 = time.time()
+        a0, mean, best = planner.plan(cstate, generator=gen, group=mesh.group)
+        sync()
+        out["plan"] = dict(seconds=time.time() - t0, launches=[fn.launches for fn in counted],
+                           a0=a0.cpu(), mean=mean.cpu(), best=best.cpu())
+        zero = planner._rollout_cost(cstate, torch.zeros(1, ccfg.horizon, cenv.action_size,
+                                                         device=dev))
+        out["plan"]["zero_cost"] = float(zero[0])
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_paths(dev, counted, card: str, ucfg, ppo_sec: dict, plan_s: float) -> dict:
+    """Phases 31-33: the sharded PPO step at a world of 1 over NCCL in this
+    process, bit for bit against rollout + update from the derived state;
+    then two ranks in spawned processes on the one card over gloo (NCCL
+    takes no two ranks on one device): rank_phases. Returns the launch
+    counts and times."""
+    from smplsim_tpu_torch.control import CEMConfig
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.learning.ppo import PPO, PPOConfig, state_tensors
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.parallel import mesh as pm
+    from smplsim_tpu_torch.parallel import rollout as pr
+
+    names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
+    pcfg = PPOConfig()
+    cfi = SpeedConfig().control_frequency_inv
+    per_iter = [2 * cfi * pcfg.horizon, 0, 0, cfi * pcfg.horizon, 0]
+    # -------------------------------------------- 31. a world of 1 over NCCL
+    print("phase 31: sharded PPO step, a world of 1 over NCCL (PPOConfig(), the default QP)",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0,
+                                timeout=pm.TIMEOUT)
+        try:
+            mesh = pm.data_mesh()
+            check(mesh.device == dev and mesh.size == 1
+                  and dist.get_backend(mesh.group) == "nccl",
+                  f"the mesh: {mesh.size} rank on {mesh.device} over "
+                  f"{dist.get_backend(mesh.group)}")
+            model = registry.default_humanoid(torch.float32, device=dev)
+            ppo = PPO(HumanoidSpeed(model, SpeedConfig()), pcfg)
+            step, ts = pr.sharded_ppo_step(ppo, mesh, ppo.init(0))
+            ref = pr.place_train_state(ppo.init(0), mesh)
+            halves = time_halves(ppo, torch.cuda.synchronize)
+            for fn in counted:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ts, metrics = step(ts)
+            torch.cuda.synchronize()
+            nccl_s = time.time() - t0
+            nccl_l = [fn.launches for fn in counted]
+            nccl_halves = dict(halves)
+            check(nccl_l == per_iter, f"the sharded iteration launched {dict(zip(names, nccl_l))}"
+                                      f" = {dict(zip(names, per_iter))}")
+            # the unsharded trainer from the derived local state, no group
+            t0 = time.time()
+            local = pr.local_train_state(ref, mesh)
+            env_states, traj = ppo.rollout(local)
+            ref1, ref_metrics = ppo.update(local, env_states, traj)
+            torch.cuda.synchronize()
+            ref_s = time.time() - t0
+            ref1 = dataclasses.replace(ref1, generator=pm.fold_in(ref.generator, pr.CARRY_FOLD))
+            check(same_bits(state_tensors(ts), state_tensors(ref1))
+                  and all(torch.equal(metrics[k], ref_metrics[k]) for k in metrics),
+                  "a world of 1: every tensor of the TrainState (generators, nets, Adam states, "
+                  "running norm, env states) and the six metrics equal bit for bit to rollout + "
+                  "update from the derived local TrainState")
+            nccl_ms = allreduce_ms(ts, mesh)
+        finally:
+            dist.destroy_process_group()
+    phase18_s = ppo_sec["rollout"] + ppo_sec["update"]
+    print(f"  {nccl_s:.3f} s per sharded iteration (rollout {nccl_halves['rollout']:.3f} s, "
+          f"update {nccl_halves['update']:.3f} s) beside phase 18's {phase18_s:.3f} s "
+          f"({nccl_s / phase18_s:.4f}x) and the unsharded iteration's {ref_s:.3f} s after it "
+          f"({nccl_s / ref_s:.4f}x) on {card}", flush=True)
+    n_mb = pcfg.opt_num_epochs * pcfg.num_minibatches
+    print(f"  NCCL gradient average: policy {nccl_ms['policy']:.3f} ms "
+          f"({nccl_ms['policy_floats']} floats), value {nccl_ms['value']:.3f} ms; x {n_mb} "
+          f"minibatch steps = {(nccl_ms['policy'] + nccl_ms['value']) * n_mb:.1f} ms per "
+          f"iteration", flush=True)
+
+    # -------------------------------- 32-33. two ranks on one card over gloo
+    print(f"phases 32-33: {SHARDED_WORLD} ranks in spawned processes on one card over gloo",
+          flush=True)
+    t0 = time.time()
+    ranks = pm.run_ranks(rank_phases, SHARDED_WORLD, (cfi, ucfg), timeout=RANKS_TIMEOUT)
+    print(f"  the world ran {time.time() - t0:.1f} s (start-up included)", flush=True)
+    print(f"phase 32: sharded PPO step, {SHARDED_WORLD} ranks x "
+          f"{pcfg.num_envs // SHARDED_WORLD} envs over gloo (PPOConfig())", flush=True)
+    check(all(r["backend"] == "gloo" and r["device"] == str(dev) for r in ranks),
+          f"every rank over gloo on {dev}: {[(r['backend'], r['device']) for r in ranks]}")
+    check(all(r["envs"] * SHARDED_WORLD == pcfg.num_envs for r in ranks),
+          f"{[r['envs'] for r in ranks]} envs per rank")
+    for it in range(SHARDED_ITERS):
+        its = [r["iterations"][it] for r in ranks]
+        check(all(i["launches"] == per_iter for i in its),
+              f"iteration {it + 1}: each rank launched {[i['launches'] for i in its]} "
+              f"({names}) = {per_iter}")
+        check(all(i["metrics"] == its[0]["metrics"] for i in its),
+              f"iteration {it + 1}: the six metrics equal on both ranks: {its[0]['metrics']}")
+        secs = [i["seconds"] for i in its]
+        rate = sum(r["envs"] * pcfg.horizon / s for r, s in zip(ranks, secs))
+        print(f"  iteration {it + 1}: {max(secs):.3f} s (ranks {secs}; rollout "
+              f"{[round(i['rollout'], 3) for i in its]} s, update "
+              f"{[round(i['update'], 3) for i in its]} s), {rate:.1f} training env-steps/s "
+              f"summed over the ranks", flush=True)
+    gms = [r["allreduce_ms"] for r in ranks]
+    print(f"  gloo gradient average: policy {[round(g['policy'], 3) for g in gms]} ms, value "
+          f"{[round(g['value'], 3) for g in gms]} ms; x {n_mb} minibatch steps = "
+          f"{max(g['policy'] + g['value'] for g in gms) * n_mb:.1f} ms per iteration",
+          flush=True)
+    check(all(r["digests"] == ranks[0]["digests"] and r["epoch"] == SHARDED_ITERS and r["finite"]
+              for r in ranks),
+          f"the trainer's generator, every parameter, Adam moment and the running norm "
+          f"bit-identical across the ranks after {SHARDED_ITERS} iterations "
+          f"({len(ranks[0]['digests'])} tensors, SHA-256), finite")
+    gaps = [r["update_gap"] for r in ranks]
+    check(max(gaps) <= 1e-9, f"PPO.update(group=) in float64 (phase 18's trajectory, its envs "
+                             f"split over the ranks), card vs CPU: {gaps} <= 1e-9 relative")
+    print(f"phase 33: sharded CEM plan, {SHARDED_WORLD} ranks x {CEM_RANK_SAMPLES} samples over "
+          f"gloo (CEMConfig())", flush=True)
+    plans = [r["plan"] for r in ranks]
+    ccfg = CEMConfig()
+    n_cs = ccfg.iterations * ccfg.horizon
+    plan_l = [2 * cfi * n_cs, 0, 0, cfi * n_cs, 0]
+    check(all(p["launches"] == plan_l for p in plans),
+          f"each rank's plan launched {[p['launches'] for p in plans]} ({names}) = {plan_l}")
+    check(all(torch.equal(p[k], plans[0][k]) for p in plans for k in ("a0", "mean", "best")),
+          "both ranks return the same first action, mean and best cost bit for bit")
+    check(all(math.isfinite(float(p["best"])) and float(p["best"]) <= p["zero_cost"] + 1e-6
+              for p in plans),
+          f"best cost {float(plans[0]['best']):.5f} <= the zero-action rollout's "
+          f"{[p['zero_cost'] for p in plans]}")
+    plan2_s = max(p["seconds"] for p in plans)
+    print(f"  {plan2_s:.3f} s per sharded plan (ranks {[p['seconds'] for p in plans]}) beside "
+          f"phase 19's {plan_s:.3f} s at {ccfg.num_samples} samples on {card}", flush=True)
+    return dict(nccl_l=nccl_l, nccl_s=nccl_s, phase18_s=phase18_s, unsharded_s=ref_s,
+                nccl_halves=nccl_halves, nccl_allreduce_ms=nccl_ms,
+                gloo_halves=[[{k: i[k] for k in ("rollout", "update")} for i in r["iterations"]]
+                             for r in ranks],
+                gloo_allreduce_ms=gms,
+                gloo_l=[[i["launches"] for i in r["iterations"]] for r in ranks],
+                gloo_s=[[i["seconds"] for i in r["iterations"]] for r in ranks],
+                plan_l=[p["launches"] for p in plans], plan_s=plan2_s, update_gap=max(gaps))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -2581,9 +2889,9 @@ def main() -> None:
     check(met >= 0.75, f"the balls met their humanoids in {met:.3f} >= 0.75 of the envs "
                        "(x-velocity moved by more than 1 m/s)")
 
+    ucfg = PPOConfig(num_envs=64, horizon=8, policy_widths=(64, 64), value_widths=(64, 64))
     tr = trainer_and_planner(model, dev, counted, card, RunConfig(num_epochs=2, save_frequency=1),
-                             PPOConfig(num_envs=64, horizon=8, policy_widths=(64, 64),
-                                       value_widths=(64, 64)), CEMConfig())
+                             ucfg, CEMConfig())
     ppo_l, eval_l, cem_l, ppo_sec, plan_s = (tr[k] for k in ("ppo_l", "eval_l", "cem_l",
                                                               "ppo_sec", "plan_s"))
     pcfg = RunConfig().learning
@@ -2595,6 +2903,7 @@ def main() -> None:
     s7 = slice7_paths(model, dev, counted, card, rate, gen)
     report.update(s7["report"])
     mp = motion_paths(model, dev, counted, card)
+    par = parallel_paths(dev, counted, card, ucfg, ppo_sec, plan_s)
 
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
@@ -2609,17 +2918,24 @@ def main() -> None:
     x64 = dict(zip(names, bp["x64_launches"]))
 
     ppo_c, eval_c, cem_c = (dict(zip(names, x)) for x in (ppo_l, eval_l, cem_l))
+    nccl_c = dict(zip(names, par["nccl_l"]))
+    gloo_c = [[dict(zip(names, it)) for it in rank] for rank in par["gloo_l"]]
+    plan2_c = [dict(zip(names, x)) for x in par["plan_l"]]
 
     def paths(uhc, torque, jac, name):
         """Launch counts of kernel `name` on every counted run of the main
         path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, 18's
         two PPO iterations and eval rollout, 19's plan, 20's β batch and
         21's SMPLX runs (its float64 step too), 22's two routes, 23's
-        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs, and
-        28's playback (no launch)."""
+        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs, 28's
+        playback (no launch), 31's sharded iteration, and 32's iterations
+        and 33's plan on every rank."""
         new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
+        sharded = (nccl_c[name] + sum(it[name] for rank in gloo_c for it in rank)
+                   + sum(c[name] for c in plan2_c))
         return dict(
-            launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name],
+            launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name]
+            + sharded,
             launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
                                        "projectile": ball[name] / 25,
                                        "eval": eval_c[name] / 8,
@@ -2628,7 +2944,11 @@ def main() -> None:
             launches_per_step_autoreset={k: r["per_step"].get(name, 0)
                                          for k, r in runs4.items()},
             launches_per_ppo_iteration=ppo_c[name] / 2,
-            launches_per_cem_plan=cem_c[name])
+            launches_per_cem_plan=cem_c[name],
+            launches_per_sharded_ppo_iteration_per_rank={
+                "nccl_world_1": nccl_c[name],
+                "gloo_world_2": [[it[name] for it in rank] for rank in gloo_c]},
+            launches_per_sharded_cem_plan_per_rank=[c[name] for c in plan2_c])
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:334",
@@ -2693,9 +3013,16 @@ def main() -> None:
           f"mean {mp['playback']['mpjpe_g_mean']:.4e} max {mp['playback']['mpjpe_g_max']:.4e} mm; "
           f"fit {mp['fit']['seconds_100']:.3f} s (100 steps, ratio {mp['fit']['ratio_100']:.4f}), "
           f"{mp['fit']['seconds_default']:.3f} s (200); TF32 card vs CPU pinned "
-          f"{tf32['pinned']:.3e}, unpinned {tf32['unpinned']:.3e}", flush=True)
+          f"{tf32['pinned']:.3e}, unpinned {tf32['unpinned']:.3e}; sharded PPO iteration: "
+          f"NCCL world of 1 {par['nccl_s']:.3f} s (phase 18 {par['phase18_s']:.3f} s), gloo 2 "
+          f"ranks {[max(s) for s in zip(*par['gloo_s'])]} s; sharded CEM plan 2 x "
+          f"{CEM_RANK_SAMPLES} samples {par['plan_s']:.3f} s", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": kernels, "card": card, "motion": mp, "tf32": tf32}))
+    sharded = {k: par[k] for k in ("nccl_s", "phase18_s", "unsharded_s", "nccl_halves",
+                                   "nccl_allreduce_ms", "gloo_s", "gloo_halves",
+                                   "gloo_allreduce_ms", "plan_s", "update_gap")}
+    print(json.dumps({"kernels": kernels, "card": card, "motion": mp, "tf32": tf32,
+                      "sharded": sharded}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

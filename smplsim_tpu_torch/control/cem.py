@@ -10,6 +10,13 @@ iterations.
 
 The rollouts step a clone of the state's generator, so planning leaves the
 env's generator where it was, as the JAX planner leaves its state.
+
+With a process group (`plan(group=)`, the JAX planner's axis_name) each
+rank rolls out its own num_samples candidates from the same state; the
+costs (N,) and actions (N, H, nu) of all ranks are gathered in rank order,
+and the elites are the num_elites cheapest of them all by a stable sort, so
+every rank refits the same mean and std bit for bit. The caller gives each
+rank its own generator or eps (fold_in(generator, rank), parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import dataclasses
 import torch
 
 from smplsim_tpu_torch.envs.base import EnvState, HumanoidEnv, clone_generator, map_state
+from smplsim_tpu_torch.parallel.mesh import all_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +73,17 @@ class CEMPlanner:
         return -total
 
     def plan(self, state: EnvState, mean: torch.Tensor | None = None,
-             generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
+             generator: torch.Generator | None = None, eps: torch.Tensor | None = None,
+             group=None):
         """One MPC solve from a batch-1 state. Returns (first action (nu,),
         mean (H, nu), best cost of the last iteration).
 
         mean: warm-start action-sequence mean (receding horizon: the previous
         plan shifted by one step). The samples' noise is drawn from
         `generator` (on the state's device), or taken from eps, an
-        (iterations, N, H, nu) tensor of standard normals."""
+        (iterations, N, H, nu) tensor of standard normals. group: a process
+        group whose every rank plans from the same state and mean with
+        num_samples candidates of its own; the elites are chosen from all."""
         cfg = self.cfg
         nu = self.env.action_size
         q = state.phys.qpos
@@ -87,6 +98,9 @@ class CEMPlanner:
                 device=q.device)
             actions = (mean + std * e).clamp(-1.0, 1.0)
             costs = self._rollout_cost(state, actions)
+            if group is not None:
+                costs = all_gather(costs, group).reshape(-1)
+                actions = all_gather(actions, group).reshape(-1, *actions.shape[1:])
             elite_idx = torch.argsort(costs, stable=True)[:cfg.num_elites]
             elites = actions[elite_idx]
             mean = cfg.alpha * mean + (1 - cfg.alpha) * elites.mean(0)
@@ -95,15 +109,18 @@ class CEMPlanner:
             best = costs[elite_idx[0]]
         return mean[0], mean, best
 
-    def receding_horizon(self, state: EnvState, n_steps: int, generator: torch.Generator):
+    def receding_horizon(self, state: EnvState, n_steps: int, generator: torch.Generator,
+                         group=None):
         """Closed-loop MPC: plan, apply the first action, shift, repeat.
-        Returns (final EnvState, rewards (n_steps,), costs (n_steps,))."""
+        Returns (final EnvState, rewards (n_steps,), costs (n_steps,)).
+        group: plan over its ranks (plan(group=)); every rank applies the
+        same first action to the same state."""
         nu = self.env.action_size
         q = state.phys.qpos
         mean = torch.zeros((self.cfg.horizon, nu), dtype=q.dtype, device=q.device)
         rews, costs = [], []
         for _ in range(n_steps):
-            a, mean, cost = self.plan(state, mean, generator)
+            a, mean, cost = self.plan(state, mean, generator, group=group)
             state = self.env.step(state, a[None])
             mean = torch.cat([mean[1:], torch.zeros_like(mean[:1])])
             rews.append(state.reward[0])

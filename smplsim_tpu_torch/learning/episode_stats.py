@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from smplsim_tpu_torch.parallel.mesh import pmax, pmin, psum
+
 
 @dataclasses.dataclass
 class EpisodeStats:
@@ -43,12 +45,20 @@ def stats_step(s: EpisodeStats, reward: torch.Tensor, done: torch.Tensor) -> Epi
     )
 
 
-def stats_summary(s: EpisodeStats) -> dict:
-    safe = torch.clamp(s.num_episodes, min=1.0)
+def stats_summary(s: EpisodeStats, group=None) -> dict:
+    """LoggerRL-style summary; with a process group, the episode count,
+    return and length are summed over its ranks and the extremes taken
+    over them."""
+    n, tr, tl = s.num_episodes, s.total_return, s.total_length
+    mx, mn = s.max_return, s.min_return
+    if group is not None:
+        n, tr, tl = psum(torch.stack([n, tr, tl]), group).unbind()
+        mx, mn = pmax(mx, group), pmin(mn, group)
+    safe = torch.clamp(n, min=1.0)
     return {
-        "num_episodes": s.num_episodes,
-        "avg_episode_reward": s.total_return / safe,
-        "avg_episode_len": s.total_length / safe,
-        "max_episode_reward": s.max_return,
-        "min_episode_reward": s.min_return,
+        "num_episodes": n,
+        "avg_episode_reward": tr / safe,
+        "avg_episode_len": tl / safe,
+        "max_episode_reward": mx,
+        "min_episode_reward": mn,
     }

@@ -16,6 +16,14 @@ adam(lr)): torch.optim.Adam (eps 1e-8, betas 0.9/0.999) behind
 `clip_by_global_norm`, optax's clip (scale by max_norm / norm only where
 norm >= max_norm), over each net's parameters, log_std included.
 
+With a process group (`update(group=)`, the JAX package's axis_name),
+each rank updates from its own shard of the trajectory: every gradient is
+averaged over the group before the clip, in one flattened all-reduce per
+net and minibatch step, the running norm merges the group's moments, and
+the six metrics are averaged over it (nactive_max too, as the JAX pmean
+does). The advantage normalisation and the permutations stay per rank.
+parallel/rollout.py composes the sharded step.
+
 Hyperparameters mirror the JAX package's PPOConfig: gamma 0.99, tau 0.95,
 clip 0.2, 10 epochs x 4 minibatches, policy lr 5e-5, value lr 3e-4, fixed
 log_std -2.5. The nets take the env model's dtype and device.
@@ -33,6 +41,7 @@ from smplsim_tpu_torch.learning.nets import (PolicyGaussian, ValueNet, gaussian_
                                              sample_action)
 from smplsim_tpu_torch.learning.running_norm import (RunningNorm, norm_init, norm_update,
                                                      normalize)
+from smplsim_tpu_torch.parallel.mesh import pmean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,23 +155,32 @@ class PPO:
                               stalled=st.info["stalled"]))
         return st, {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
-    def _apply(self, loss: torch.Tensor, net: torch.nn.Module, opt: torch.optim.Adam) -> None:
+    def _apply(self, loss: torch.Tensor, net: torch.nn.Module, opt: torch.optim.Adam,
+               group=None) -> None:
         """One clipped Adam step of `net` on `loss`. A parameter that gets
         no gradient (a fixed log_std) gets a zero one, so Adam keeps a
-        state for every parameter, as optax does."""
+        state for every parameter, as optax does. group: the gradients are
+        first averaged over its ranks."""
         params = list(net.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if group is not None:
+            flat = pmean(torch.cat([g.reshape(-1) for g in grads]), group)
+            grads = [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in params]),
+                                                   params)]
         for p, g in zip(params, clip_by_global_norm(grads, self.cfg.max_grad_norm)):
             p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
 
-    def update(self, ts: TrainState, env_states, traj: dict, perms: torch.Tensor | None = None):
+    def update(self, ts: TrainState, env_states, traj: dict, perms: torch.Tensor | None = None,
+               group=None):
         """The update half of a PPO iteration on a rollout's trajectory.
         perms: optional (opt_num_epochs, n) permutations of the n = T * B
-        samples; without it they are drawn from ts.generator. Returns the
-        next TrainState (epoch + 1) and six 0-d metric tensors."""
+        samples; without it they are drawn from ts.generator. group: a
+        process group whose every rank calls update on its own (T, B)
+        shard (see the module docstring). Returns the next TrainState
+        (epoch + 1) and six 0-d metric tensors."""
         cfg = self.cfg
         with torch.no_grad():
             nobs_t = normalize(ts.obs_norm, traj["obs"], cfg.obs_clip)
@@ -177,7 +195,7 @@ class PPO:
             action = traj["action"].reshape(-1, traj["action"].shape[-1])
             logp_old, adv, ret = traj["logp"].reshape(-1), adv.reshape(-1), ret.reshape(-1)
             n = logp_old.shape[0]
-            obs_norm = norm_update(ts.obs_norm, traj["obs"].reshape(nobs.shape))
+            obs_norm = norm_update(ts.obs_norm, traj["obs"].reshape(nobs.shape), group)
         if perms is None:
             perms = torch.stack([torch.randperm(n, generator=ts.generator, device=nobs.device)
                                  for _ in range(cfg.opt_num_epochs)])
@@ -190,9 +208,9 @@ class PPO:
                 a = adv[idx]
                 surr = torch.minimum(
                     ratio * a, ratio.clamp(1.0 - cfg.clip_epsilon, 1.0 + cfg.clip_epsilon) * a)
-                self._apply(-surr.mean(), ts.policy, ts.policy_opt)
+                self._apply(-surr.mean(), ts.policy, ts.policy_opt, group)
                 self._apply((ts.value(nobs[idx]) - ret[idx]).square().mean(), ts.value,
-                            ts.value_opt)
+                            ts.value_opt, group)
         metrics = {
             "reward_mean": traj["reward"].mean(),
             "episode_done_frac": traj["done"].to(dtype).mean(),
@@ -203,5 +221,7 @@ class PPO:
             "qp_stalled_frac": traj["stalled"].to(dtype).mean(),
             "nactive_max": traj["nactive"].max().to(dtype),
         }
+        if group is not None:
+            metrics = dict(zip(metrics, pmean(torch.stack(list(metrics.values())), group)))
         return dataclasses.replace(ts, obs_norm=obs_norm, env_states=env_states,
                                    epoch=ts.epoch + 1), metrics

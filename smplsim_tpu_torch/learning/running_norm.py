@@ -2,13 +2,18 @@
 
 The statistics are an explicit value, (n, mean, var) tensors on the device,
 merged functionally from rollout batches with Chan's parallel update; the
-`maximum(n, 1)` guards keep an empty merge finite.
+`maximum(n, 1)` guards keep an empty merge finite. With a process group the
+batch moments are first merged over its ranks, so every rank holds the same
+statistics.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
+
+from smplsim_tpu_torch.parallel.mesh import pmean
 
 
 @dataclasses.dataclass
@@ -27,11 +32,20 @@ def norm_init(dim: int, dtype: torch.dtype = torch.float32,
     )
 
 
-def norm_update(stats: RunningNorm, batch: torch.Tensor) -> RunningNorm:
-    """Merge a batch (B, dim) into the running stats."""
+def norm_update(stats: RunningNorm, batch: torch.Tensor, group=None) -> RunningNorm:
+    """Merge a batch (B, dim) into the running stats. group: a process
+    group whose ranks each hold a batch of B rows; the JAX package's
+    axis_name order: the global mean is the mean of the batch means, the
+    variance the mean of bvar + (bmean - gmean)^2, the count B times the
+    group's size."""
     bn = float(batch.shape[0])
     bmean = batch.mean(0)
     bvar = (batch - bmean).square().mean(0)
+    if group is not None:
+        gmean = pmean(bmean, group)
+        bvar = pmean(bvar + (bmean - gmean).square(), group)
+        bmean = gmean
+        bn = bn * dist.get_world_size(group)
     n = stats.n + bn
     safe = torch.clamp(n, min=1.0)
     delta = bmean - stats.mean
