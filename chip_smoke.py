@@ -278,12 +278,31 @@ Phases (any failure exits non-zero):
      best cost at most the zero-action rollout's; seconds per plan beside
      phase 19's. A rank that fails, dies or outlives RANKS_TIMEOUT kills
      both and fails the run.
+ 34. the product gate (tools/gate_f32_torch.py's functions; BASELINE.md's
+     1e-2 over 150 closed-loop steps against MuJoCo), one env:
+     HumanoidSpeed from the MuJoCo golden's start under its actions
+     (tests/golden/speed_ref_150.npz), cut in depth from the tool's 150
+     steps (GATE_* below): float64 at the package's default QP over
+     GATE_STEPS = 42 control steps, within 1e-9 of the golden at every
+     step; float32 at the product QP on the dense route over 42 steps and
+     on the articulated-body route over 20, within 5e-3 of the JAX
+     package's float32 trajectory (speed_ref_150_jax_f32_product.npy) over
+     steps 0-39 and 0-19, the golden and tight curves and the 45-step
+     envelope printed, not gated; getup at 64 envs x 3 step_autoresets,
+     stalled share <= 0.05; 30 + 15 launches per control step on the
+     dense route, 1 + 15 on the ABA route, 90 + 45 for getup's reset and
+     120 + 60 per step_autoreset; then Kernels A (m = 1 + diag and m =
+     65) and B (K = 64, 40 iterations) against their plain versions at B =
+     1 on the float64 loop's own systems before control steps 18 and 41
+     (hold_a_b; the race with the column kernel and the block form printed,
+     not gated: at one system it is one launch's latency).
 
 Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
 19's plan, 20's and 21's runs, 21's float64 step, 22's two runs, 23's,
-24's, 25's and 28's runs, 31's iteration, and each rank's iterations in 32
-and plan in 33 each set every launch count to 0 just before and read them
-just after. The third-to-last line is the `kernels` JSON object, the
+24's, 25's and 28's runs, 31's iteration, each rank's iterations in 32
+and plan in 33, and 34's four gate runs each set every launch count to 0
+just before and read them just after. The third-to-last line is the
+`kernels` JSON object, the
 line after it the card's name and power limit; the last line is the result
 object.
 """
@@ -358,6 +377,26 @@ SHARDED_WORLD = 2
 SHARDED_ITERS = 2
 CEM_RANK_SAMPLES = 64
 RANKS_TIMEOUT = 900
+# phase 34: the product gate (tools/gate_f32_torch.py, 150 control steps
+# each, 64 x 150 for getup) cut to this run's time. One env steps
+# launch-bound: on an H100 80GB HBM3 at 700 W, 0.72-0.75 s per control
+# step alone, 0.92-0.98 s after phases 1-33, 1.43 s on the ABA route,
+# getup 2.5-4.5 s per step_autoreset; and the whole script took 850.8 s
+# on one host and 1,224.1 s on a slower one (the rates of every phase
+# 0.64-0.75x), against a limit of 1,200 s. The float64 and the dense
+# float32 loops run GATE_STEPS = 42 steps: the float32 gate's window (steps
+# 0-39) and the golden's crossing at 41; the articulated-body route
+# GATE_ABA_STEPS = 20 (its window steps 0-19); getup GATE_GETUP_ENVS envs x
+# GATE_GETUP_STEPS = 3 step_autoresets. Kernels A and B are held at B = 1
+# on the float64 loop's systems before the control steps GATE_HOLD_STEPS,
+# two of the most contact-rich of the 42 (32 active rows each; steps 0,
+# 6, 12 and 27-30 have none, on the CPU and on the card, whose float64
+# loops agree to 1e-12)
+GATE_STEPS = 42
+GATE_ABA_STEPS = 20
+GATE_GETUP_ENVS = 64
+GATE_GETUP_STEPS = 3
+GATE_HOLD_STEPS = (18, 41)
 # H100 SXM published peaks (dense, 700 W): HBM bytes/s, float32 outside the
 # tensor cores, float64 on them (the card's top rate for the type; 34e12
 # outside them)
@@ -554,11 +593,13 @@ def tolerance_spread(A, b, a, fk, fp, tol, parted) -> bool:
     return ok
 
 
-def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
+def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False,
+            gate_forms: bool = True) -> dict:
     """newton_qp float32: kernel against plain on the systems with finite
     inputs and plain result (with converged_only, on those where both meet
     the tolerance), times on all, the bound from the iterations this data
-    needs; the block-per-system form timed on the same inputs."""
+    needs; the block-per-system form timed on the same inputs (gate_forms:
+    failing unless the wrapper's form is the faster)."""
     fk = qp.newton_qp(A, b, a, f0, it, tol)
     fp, its = qp.newton_qp_plain_counted(A, b, a, f0, it, tol)
     ok = finite_rows(A, b, f0, fp)
@@ -581,8 +622,12 @@ def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False) -> dict:
     fo = torch.empty_like(b)
     prev = cuda_ms(lambda: newton_qp_raw(build, A, b, a, f0, fo, it, tol), 20)
     plain = cuda_ms(lambda: qp.newton_qp_plain(A, b, a, f0, it, tol), 3)
-    check(ms < prev, f"newton_qp float32: the {qp.newton_qp_route(b.shape[1])} form "
-                     f"({ms:.4f} ms) is faster than the block form ({prev:.4f} ms) in this call")
+    faster = f"newton_qp float32: the {qp.newton_qp_route(b.shape[1])} form ({ms:.4f} ms) " \
+             f"is faster than the block form ({prev:.4f} ms) in this call"
+    if gate_forms:
+        check(ms < prev, faster)
+    else:
+        print(f"  not gated: {faster}: {ms < prev}", flush=True)
     Bn, Kq = b.shape
     nbytes = 4 * Bn * (Kq * Kq + 4 * Kq)
     # the work this run's data needs: the Newton iterations each system
@@ -911,16 +956,18 @@ def substep_inputs(model, state, act, qp_rows: int = QP["qp_rows"]) -> dict:
 
 
 def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
-             tol32: float = QP["qp_tol"], converged_only: bool = False) -> dict:
+             tol32: float = QP["qp_tol"], converged_only: bool = False,
+             gate_forms: bool = True) -> dict:
     """Kernels A (chol_solve at m=1 + diag and m = 1 + K) and B (newton_qp
     with `iters` iterations, float32 tolerance tol32, float64 1e-12)
     against their plain versions on `inputs` (substep_inputs): float64
     elementwise, float32 by residual, objective and KKT; times of kernel,
     plain version, library call and the previous forms (A's column kernel
     and both solve forms through their raw entry points, B's block form),
-    failing unless the wrappers' kernels are the faster. Returns the
-    report entries of inputs["chol"] and "qp"; `tag` prefixes the printed
-    names."""
+    failing unless the wrappers' kernels are the faster (with gate_forms
+    False, printed only: at a batch of one system the race is one launch's
+    latency). Returns the report entries of inputs["chol"] and "qp"; `tag`
+    prefixes the printed names."""
     from smplsim_tpu_torch.ops import _build, linalg, qp
 
     report = {}
@@ -961,9 +1008,12 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
                                         f"residual {fres:.3e} <= 1e-5")
                     forms[fname] = cuda_ms(lambda: chol_solve_raw(_build, Ad, bd, dd, xo, form), 20)
                 route = linalg.chol_solve_route(*bd.shape[1:], 4)
-                check(ms < prev, f"{tag}chol_solve[{name}]: the tiled kernel ({route} form, "
-                                 f"{ms:.4f} ms) is faster than the column kernel ({prev:.4f} ms) "
-                                 "in this call")
+                faster = (f"{tag}chol_solve[{name}]: the tiled kernel ({route} form, {ms:.4f} "
+                          f"ms) is faster than the column kernel ({prev:.4f} ms) in this call")
+                if gate_forms:
+                    check(ms < prev, faster)
+                else:
+                    print(f"  not gated: {faster}: {ms < prev}", flush=True)
 
                 def library():
                     L = torch.linalg.cholesky(H if dd is None else Ad + torch.diag_embed(dd))
@@ -1032,7 +1082,7 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
               f"where the plain version meets it ({only_p})")
         if dt != torch.float32:
             continue
-        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol, converged_only)
+        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol, converged_only, gate_forms)
         r = report["qp"]
         print(f"  {tag}newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
               f"plain {r['plain_ms']:.4f} ms, bound "
@@ -2240,6 +2290,99 @@ def parallel_paths(dev, counted, card: str, ucfg, ppo_sec: dict, plan_s: float) 
                 plan_l=[p["launches"] for p in plans], plan_s=plan2_s, update_gap=max(gaps))
 
 
+def gate_tools():
+    """tools/calibrate_solver_torch.py and tools/gate_f32_torch.py as modules."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import calibrate_solver_torch as cal
+    import gate_f32_torch as gate
+    return cal, gate
+
+
+def product_gate_paths(dev, counted) -> dict:
+    """Phase 34: the product gate of tools/gate_f32_torch.py on the card,
+    each run counted: the float64 speed loop at the default QP against the
+    MuJoCo golden, the float32 loops at the product QP on the dense and the
+    articulated-body route against the JAX package's float32 trajectory,
+    getup's solver health; then Kernels A and B against their plain versions
+    on the float64 loop's own systems at B = 1. Returns the records, the
+    launch counts per run and the hold reports."""
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.ops import qp
+
+    cal, gate = gate_tools()
+    names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
+
+    def counted_run(label, fn, a_b):
+        for f in counted:
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rec = fn()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        got = [f.launches for f in counted]
+        want = [a_b[0], 0, 0, a_b[1], 0]
+        check(got == want, f"{label}: launches {dict(zip(names, got))} = chol_solve {a_b[0]}, "
+                           f"newton_qp {a_b[1]}, no C, D or E")
+        print(f"  {label}: {sec:.1f} s", flush=True)
+        return rec, dict(zip(names, got)), sec
+
+    out = {"records": {}, "launches": {}, "seconds": {}}
+    print(f"phase 34: the product gate (tools/gate_f32_torch.py) on {GATE_STEPS} float64 and "
+          f"float32 control steps, {GATE_ABA_STEPS} on the ABA route, getup {GATE_GETUP_ENVS} "
+          f"envs x {GATE_GETUP_STEPS}", flush=True)
+    held = {}
+
+    def keep(t, state, action):
+        if t in GATE_HOLD_STEPS:
+            held[t] = (state, action)
+
+    runs = (("speed_f64", lambda: gate.speed_f64(dev, GATE_STEPS, before_step=keep),
+             (2 * CFI * GATE_STEPS, CFI * GATE_STEPS)),
+            ("speed_f32_dense", lambda: gate.speed_f32(dev, GATE_STEPS),
+             (2 * CFI * GATE_STEPS, CFI * GATE_STEPS)),
+            ("speed_f32_aba", lambda: gate.speed_f32(dev, GATE_ABA_STEPS, aba=True),
+             (GATE_ABA_STEPS, CFI * GATE_ABA_STEPS)),
+            # the reset's Fall (3 control steps) and a Fall for every env at
+            # each step_autoreset (phase 14's 120 + 60)
+            ("getup", lambda: gate.getup(dev, GATE_GETUP_ENVS, GATE_GETUP_STEPS),
+             (6 * CFI + 8 * CFI * GATE_GETUP_STEPS, 3 * CFI + 4 * CFI * GATE_GETUP_STEPS)))
+    for label, fn, a_b in runs:
+        rec, launches, sec = counted_run(label, fn, a_b)
+        out["records"][label], out["launches"][label], out["seconds"][label] = rec, launches, sec
+        for k, v in rec.items():
+            if k.startswith("vs_"):
+                print(f"  {label} {k}: {json.dumps(v)}", flush=True)
+    r64 = out["records"]["speed_f64"]
+    err = r64["vs_f64_golden"]["max_err_150"]
+    check(r64["pass"], f"float64 speed loop at the default QP against the MuJoCo golden over "
+                       f"{GATE_STEPS} control steps: {err:.3e} <= 1e-9 (the JAX float64 "
+                       f"trajectory: {r64['vs_jax_f64']['max_err_150']:.3e})")
+    for label in ("speed_f32_dense", "speed_f32_aba"):
+        r = out["records"][label]
+        check(r["pass"], f"{label}: against the JAX float32 trajectory over steps 0-"
+                         f"{min(r['steps'] - 1, gate.F32_JAX_LAST)}: "
+                         f"{r['vs_jax_f32_max_err_0_39']:.3e} <= 5e-3 (over "
+                         f"{r['steps']}: {r['vs_jax_f32']['max_err_150']:.3e}; golden's 1e-2 first "
+                         f"crossed at {r['vs_f64_golden']['first_step_over_1e-2']}, the 45-step "
+                         f"envelope {'met' if r['envelope_pass'] else 'not met'}, recorded)")
+    g = out["records"]["getup"]
+    check(g["pass"], f"getup {GATE_GETUP_ENVS} envs x {GATE_GETUP_STEPS}: stalled_frac "
+                     f"{g['stalled_frac']:.4f} <= 0.05 (overflow {g['overflow_frac']:.4f}, "
+                     f"nactive mean {g['nactive_mean']:.2f} max {g['nactive_max']})")
+    # A and B on the float64 loop's own systems, one env
+    model = registry.default_humanoid(torch.float64, dev)
+    out["hold"] = {}
+    for t in GATE_HOLD_STEPS:
+        state, action = held[t]
+        inputs = substep_inputs(model, state, action, qp_rows=cal.DEFAULT_QP["qp_rows"])
+        out["hold"][t] = hold_a_b(f"gate f64 step {t} ", inputs, qp.NEWTON_ITERS,
+                                  qp.tol_for(torch.float32), gate_forms=False)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
@@ -2904,6 +3047,7 @@ def main() -> None:
     report.update(s7["report"])
     mp = motion_paths(model, dev, counted, card)
     par = parallel_paths(dev, counted, card, ucfg, ppo_sec, plan_s)
+    pg = product_gate_paths(dev, counted)
 
     # ---------------------------------------------------------------- report
     per_step = lambda c: c / STEPS
@@ -2929,13 +3073,14 @@ def main() -> None:
         21's SMPLX runs (its float64 step too), 22's two routes, 23's
         NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs, 28's
         playback (no launch), 31's sharded iteration, and 32's iterations
-        and 33's plan on every rank."""
+        and 33's plan on every rank, and 34's four gate runs."""
         new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
         sharded = (nccl_c[name] + sum(it[name] for rank in gloo_c for it in rank)
                    + sum(c[name] for c in plan2_c))
+        gate = {k: c[name] for k, c in pg["launches"].items()}
         return dict(
             launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name]
-            + sharded,
+            + sharded + sum(gate.values()),
             launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
                                        "projectile": ball[name] / 25,
                                        "eval": eval_c[name] / 8,
@@ -2948,7 +3093,8 @@ def main() -> None:
             launches_per_sharded_ppo_iteration_per_rank={
                 "nccl_world_1": nccl_c[name],
                 "gloo_world_2": [[it[name] for it in rank] for rank in gloo_c]},
-            launches_per_sharded_cem_plan_per_rank=[c[name] for c in plan2_c])
+            launches_per_sharded_cem_plan_per_rank=[c[name] for c in plan2_c],
+            launches_per_gate_run=gate)
     kernels = [
         dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:334",
@@ -2965,7 +3111,9 @@ def main() -> None:
                      **{f"trainer {k}": report["trainer"][k] for k in trainer_chol},
                      **{f"{p} {k}": report[p][k] for p in ("beta", "smplx", "dr")
                         for k in ("m=1,diag", "m=33")},
-                     "smplx float64 m=65": bp["smplx_f64_m65"]},
+                     "smplx float64 m=65": bp["smplx_f64_m65"],
+                     **{f"gate float64 B=1 step {t} {k}": pg["hold"][t][k]
+                        for t in GATE_HOLD_STEPS for k in ("m=1,diag", "m=65")}},
              aba_elimination=report["aba"]),
         dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
              replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
@@ -2975,7 +3123,9 @@ def main() -> None:
                                      "trainer": {**report["trainer"]["qp"],
                                                  "full_rows": report["trainer"]["full_rows"]},
                                      **{p: {**report[p]["qp"], "full_rows": report[p]["full_rows"]}
-                                        for p in ("beta", "smplx", "dr")}}),
+                                        for p in ("beta", "smplx", "dr")},
+                                     **{f"gate float64 B=1 step {t}": pg["hold"][t]["qp"]
+                                        for t in GATE_HOLD_STEPS}}),
         dict(name="cho_factor_solve", route="cuda",
              source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
              replaces="smplsim_tpu/ops/linalg_kernels.py:104",
@@ -3017,12 +3167,15 @@ def main() -> None:
           f"NCCL world of 1 {par['nccl_s']:.3f} s (phase 18 {par['phase18_s']:.3f} s), gloo 2 "
           f"ranks {[max(s) for s in zip(*par['gloo_s'])]} s; sharded CEM plan 2 x "
           f"{CEM_RANK_SAMPLES} samples {par['plan_s']:.3f} s", flush=True)
+    print(f"product gate: " + "; ".join(f"{k} {v:.1f} s" for k, v in pg["seconds"].items()),
+          flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     sharded = {k: par[k] for k in ("nccl_s", "phase18_s", "unsharded_s", "nccl_halves",
                                    "nccl_allreduce_ms", "gloo_s", "gloo_halves",
                                    "gloo_allreduce_ms", "plan_s", "update_gap")}
+    gate = {k: pg[k] for k in ("records", "launches", "seconds")}
     print(json.dumps({"kernels": kernels, "card": card, "motion": mp, "tf32": tf32,
-                      "sharded": sharded}))
+                      "sharded": sharded, "product_gate": gate}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
