@@ -58,6 +58,7 @@ from smplsim_tpu_torch.models.spec import RobotModel, check_batch, tile_model
 from smplsim_tpu_torch.physics import constraints, engine, kinematics, solver
 from smplsim_tpu_torch.physics.engine import PhysicsState
 from smplsim_tpu_torch.physics.precision import ieee_fp32
+from smplsim_tpu_torch.utils.profiler import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,6 +298,7 @@ class HumanoidEnv:
         qpos[:, 3:7] = 0.5
         return PhysicsState(qpos, torch.zeros((batch, m.nv), dtype=m.dtype, device=m.device))
 
+    @span("smplsim.env.obs")
     def compute_obs(self, task: Any, phys: PhysicsState, kin: kinematics.Kin,
                     model: RobotModel | None = None) -> torch.Tensor:
         cfg = self.config
@@ -315,6 +317,7 @@ class HumanoidEnv:
             raise NotImplementedError(f"self_obs_v {cfg.self_obs_v}")
         return torch.cat([prop, self.task_obs(task, phys, kin)], dim=1)
 
+    @span("smplsim.env.reset")
     @ieee_fp32()
     def reset(self, batch: int, generator: torch.Generator,
               model: RobotModel | None = None) -> EnvState:
@@ -347,6 +350,7 @@ class HumanoidEnv:
         recomputed (the JAX package's `reset_ref=None`)."""
         return self._reset_ref if model is self.model else engine.reset_reference(model)
 
+    @span("smplsim.env.step")
     @ieee_fp32()
     def step(self, state: EnvState, action: torch.Tensor,
              model: RobotModel | None = None) -> EnvState:
@@ -369,11 +373,12 @@ class HumanoidEnv:
         cur_t = state.cur_t + 1
         kin = kinematics.fk(m, phys.qpos)
         obs = self.compute_obs(task, phys, kin, m)
-        rew = self.reward(task, phys, kin, action)
-        truncated = cur_t > cfg.episode_length
-        illegal = lean.geom_floor_contact & ~self._legal_floor_geom
-        terminated = illegal.any(1) & cfg.enable_early_termination
-        task, terminated = self.task_termination(task, terminated)
+        with span("smplsim.env.reward"):
+            rew = self.reward(task, phys, kin, action)
+            truncated = cur_t > cfg.episode_length
+            illegal = lean.geom_floor_contact & ~self._legal_floor_geom
+            terminated = illegal.any(1) & cfg.enable_early_termination
+            task, terminated = self.task_termination(task, terminated)
         return EnvState(
             phys=phys, obs=obs, reward=rew, terminated=terminated, truncated=truncated,
             cur_t=cur_t, task=task,
@@ -384,16 +389,23 @@ class HumanoidEnv:
                   "stalled": lean.stalled_any},
             pd_cache=cache, kin=kin, rng=state.rng)
 
+    @span("smplsim.env.step_autoreset")
     @ieee_fp32()
     def step_autoreset(self, state: EnvState, action: torch.Tensor,
                        model: RobotModel | None = None) -> EnvState:
         """Step, then reset every env that finished (terminated or
         truncated). Their reward, flags and info are the finishing step's;
         phys, obs, task and caches come from the reset; `model` as in
-        `reset`."""
+        `reset`. Counts the rows its reset computes (`env.rows_reset`) and
+        those that finished (`env.rows_finished`)."""
         nxt = self.step(state, action, model)
-        fresh = self.reset(nxt.cur_t.shape[0], nxt.rng, model)
+        batch = nxt.cur_t.shape[0]
+        fresh = self.reset(batch, nxt.rng, model)
         fresh = dataclasses.replace(
             fresh, reward=nxt.reward, terminated=nxt.terminated,
             truncated=nxt.truncated, info=nxt.info)
-        return select(nxt.done, fresh, nxt)
+        done = nxt.done
+        count("env.rows_reset", batch)
+        count("env.rows_finished", done)
+        with span("smplsim.env.select"):
+            return select(done, fresh, nxt)

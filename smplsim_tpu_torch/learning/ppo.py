@@ -42,6 +42,7 @@ from smplsim_tpu_torch.learning.nets import (PolicyGaussian, ValueNet, gaussian_
 from smplsim_tpu_torch.learning.running_norm import (RunningNorm, norm_init, norm_update,
                                                      normalize)
 from smplsim_tpu_torch.parallel.mesh import pmean
+from smplsim_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +136,7 @@ class PPO:
             epoch=0,
         )
 
+    @span("smplsim.learning.rollout")
     @torch.no_grad()
     def rollout(self, ts: TrainState):
         """(env_states, traj): `horizon` step_autoresets under the current
@@ -145,7 +147,8 @@ class PPO:
         steps = []
         for _ in range(cfg.horizon):
             obs = st.obs
-            mean, log_std = ts.policy(normalize(ts.obs_norm, obs, cfg.obs_clip))
+            with span("smplsim.learning.policy"):
+                mean, log_std = ts.policy(normalize(ts.obs_norm, obs, cfg.obs_clip))
             action = sample_action(ts.generator, mean, log_std)
             logp = gaussian_log_prob(mean, log_std, action)
             st = self.env.step_autoreset(st, action.clamp(-1.0, 1.0))
@@ -173,6 +176,7 @@ class PPO:
         opt.step()
         opt.zero_grad(set_to_none=True)
 
+    @span("smplsim.learning.update")
     def update(self, ts: TrainState, env_states, traj: dict, perms: torch.Tensor | None = None,
                group=None):
         """The update half of a PPO iteration on a rollout's trajectory.

@@ -29,6 +29,7 @@ from smplsim_tpu_torch.physics.algebra import cross
 from smplsim_tpu_torch.physics.collision_pairs import (BIG, MAX_SELF, _box_sdf, _geom_world,
                                                        _segment, self_contacts, top_k)
 from smplsim_tpu_torch.physics.kinematics import Kin, body_twists
+from smplsim_tpu_torch.utils.profiler import span
 
 MAX_CONTACTS = 24   # floor contacts kept per env (deepest first)
 MAX_LIMITS = 12     # joint-limit rows kept per env
@@ -198,6 +199,7 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     return W6, k_body, aref, R, k_active, sphere
 
 
+@span("smplsim.physics.rows")
 def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
              keeps=None, spheres=None) -> EFC:
     """Assemble the fixed-shape constraint rows (limits first, then contacts).

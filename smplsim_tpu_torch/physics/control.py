@@ -30,6 +30,7 @@ import torch
 from smplsim_tpu_torch.models.spec import RobotModel
 from smplsim_tpu_torch.ops import linalg
 from smplsim_tpu_torch.physics import linalg as ad_linalg
+from smplsim_tpu_torch.utils.profiler import span
 
 
 def pd_target_from_action(model: RobotModel, action: torch.Tensor) -> torch.Tensor:
@@ -57,6 +58,7 @@ def _stable_pd_tau(model: RobotModel, qerr, qvel, qacc, kp_scale, kd_scale):
     return torch.clamp(tau, -model.torque_lim, model.torque_lim)
 
 
+@span("smplsim.physics.pd_torque")
 def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
                      kp_scale: float = 1.0, kd_scale: float = 1.0):
     """tau (B,nu) from the stale (M, C) and the current state, the gains
@@ -70,6 +72,7 @@ def stable_pd_torque(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
     return _stable_pd_tau(model, qerr, qvel, qacc, kp_scale, kd_scale)
 
 
+@span("smplsim.physics.pd_torque")
 def stable_pd_torque_ref(model: RobotModel, M_prev, C_prev, qpos, qvel, target,
                          kp_scale: float = 1.0, kd_scale: float = 1.0):
     """tau (B,nu) as `stable_pd_torque`, through one `cho_factor_solve` of

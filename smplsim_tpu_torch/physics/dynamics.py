@@ -26,12 +26,14 @@ from smplsim_tpu_torch.models.spec import RobotModel
 from smplsim_tpu_torch.physics import algebra, linalg
 from smplsim_tpu_torch.physics.kinematics import Kin
 from smplsim_tpu_torch.physics.topology import mask_tensor
+from smplsim_tpu_torch.utils.profiler import span
 
 
 def _mask(model: RobotModel, name: str, like: torch.Tensor) -> torch.Tensor:
     return mask_tensor(model.parents, name, like.dtype, like.device)
 
 
+@span("smplsim.physics.crba")
 def mass_matrix(model: RobotModel, kin: Kin) -> torch.Tensor:
     """(B,nv,nv) joint-space inertia including armature (== mj_fullM)."""
     S = kin.S
@@ -51,6 +53,7 @@ def mass_matrix(model: RobotModel, kin: Kin) -> torch.Tensor:
     return (M + eye * model.armature.to(dtype)[..., None, :]).contiguous()
 
 
+@span("smplsim.physics.rnea")
 def bias_forces(model: RobotModel, kin: Kin, qvel: torch.Tensor) -> torch.Tensor:
     """(B,nv) Coriolis/centrifugal plus gravity forces (== qfrc_bias)."""
     S = kin.S

@@ -50,6 +50,7 @@ from smplsim_tpu_torch.physics import constraints, dynamics, integrator, kinemat
 from smplsim_tpu_torch.physics.control import pd_target_from_action, torque_ctrl
 from smplsim_tpu_torch.physics.precision import ieee_fp32
 from smplsim_tpu_torch.physics.substep import _bad, control_loop
+from smplsim_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -125,6 +126,7 @@ def reset_reference(model: RobotModel):
     return q0, v0, M, C
 
 
+@span("smplsim.physics.control_step")
 @ieee_fp32()
 def control_step(model: RobotModel, state: PhysicsState, action: torch.Tensor,
                  control_freq_inv: int = 15, cache=None, reset_ref=None,
@@ -194,15 +196,17 @@ def _direct_loop(model, state, tau, control_freq_inv, reset_ref, knobs):
     stall = torch.zeros(B, dtype=torch.bool, device=dev)
     for _ in range(control_freq_inv):
         info = forward(model, state, tau, f_w, **knobs)
-        q2, v2 = integrator.euler_step(state.qpos, state.qvel, info.sol.qacc, model.timestep)
-        # MuJoCo's mjMAXVAL reset: restart from the reference pose, drop the
-        # warm start, add no power
-        bad = _bad(state.qpos) | _bad(state.qvel) | _bad(info.sol.qacc)
-        b1 = bad[:, None]
-        power = power + torch.where(bad, torch.zeros_like(power),
-                                    (tau * state.qvel[:, 6:]).abs().sum(1))
-        state = PhysicsState(torch.where(b1, reset_q, q2), torch.where(b1, reset_v, v2))
-        f_w = torch.where(b1, torch.zeros_like(f_w), info.sol.efc_force)
-        nact = torch.maximum(nact, info.sol.nactive)
-        stall = stall | info.sol.stalled
+        with span("smplsim.physics.integrate"):
+            q2, v2 = integrator.euler_step(state.qpos, state.qvel, info.sol.qacc,
+                                           model.timestep)
+            # MuJoCo's mjMAXVAL reset: restart from the reference pose, drop
+            # the warm start, add no power
+            bad = _bad(state.qpos) | _bad(state.qvel) | _bad(info.sol.qacc)
+            b1 = bad[:, None]
+            power = power + torch.where(bad, torch.zeros_like(power),
+                                        (tau * state.qvel[:, 6:]).abs().sum(1))
+            state = PhysicsState(torch.where(b1, reset_q, q2), torch.where(b1, reset_v, v2))
+            f_w = torch.where(b1, torch.zeros_like(f_w), info.sol.efc_force)
+            nact = torch.maximum(nact, info.sol.nactive)
+            stall = stall | info.sol.stalled
     return state, LeanInfo(info.efc.geom_floor_contact, nact, stall), power, None

@@ -25,6 +25,7 @@ from smplsim_tpu_torch import transforms as T
 from smplsim_tpu_torch.models.spec import RobotModel, check_batch
 from smplsim_tpu_torch.physics.algebra import cross
 from smplsim_tpu_torch.physics.topology import mask_tensor
+from smplsim_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -36,6 +37,7 @@ class Kin:
     inertia_w: torch.Tensor  # (B,J,3,3) rotational inertia about the COM, world
 
 
+@span("smplsim.physics.fk")
 def fk(model: RobotModel, qpos: torch.Tensor) -> Kin:
     parents = model.parents
     J = len(parents)

@@ -35,6 +35,7 @@ from smplsim_tpu_torch.physics import linalg as ad_linalg
 from smplsim_tpu_torch.physics.constraints import EFC, MAX_LIMITS, NEFC
 from smplsim_tpu_torch.physics.dynamics import Smooth
 from smplsim_tpu_torch.physics.topology import mask_tensor
+from smplsim_tpu_torch.utils.profiler import span
 
 COMPACT_ROWS = int(os.environ.get("SMPLSIM_QP_ROWS", 64))
 
@@ -101,6 +102,7 @@ def delassus(rows: Rows, X: torch.Tensor):
     return A, b
 
 
+@span("smplsim.physics.solve")
 def solve_constraints(model, S, M, qfrc, efc: EFC, f_warm, iters=None, K=None, tol=None):
     """S (B,nv,6) dof subspaces; M the (B,nv,nv) mass matrix, or a solve
     closure solve(rhs) -> M^-1 rhs (substep.aba_solver: the articulated-body
@@ -137,6 +139,7 @@ class ConstraintSolution:
     stalled: torch.Tensor          # (B,) the QP stopped short of its tolerance
 
 
+@span("smplsim.physics.solve")
 def solve_constraints_gram(model, S, smooth: Smooth, efc: EFC, f_warm=None,
                            iters=None, K=None, tol=None) -> ConstraintSolution:
     """S (B,nv,6) dof subspaces; smooth from `dynamics.smooth_dynamics`;

@@ -68,6 +68,7 @@ import torch
 from smplsim_tpu_torch.physics import aba, constraints, dynamics, integrator, kinematics, solver
 from smplsim_tpu_torch.physics import linalg as ad_linalg
 from smplsim_tpu_torch.physics.control import stable_pd_torque, stable_pd_torque_ref
+from smplsim_tpu_torch.utils.profiler import span
 
 MJ_MAXVAL = 1e10
 
@@ -109,6 +110,7 @@ def aba_solver(model, kin):
     the mass matrix of these kinematics is never formed or factored."""
     arm = model.armature.to(kin.S.dtype)
 
+    @span("smplsim.physics.crba")
     def solve(rhs, diag=None):
         d = (arm if diag is None else arm + diag).expand(rhs.shape[0], rhs.shape[1])
         return aba.mass_solve(model.parents, kin.S, kin.com, kin.inertia_w, kin.xpos,
@@ -167,28 +169,29 @@ def control_loop(model, q, v, M, C, f_w, target, reset_ref, control_freq_inv: in
         else:
             qacc, f_w2, nactive, stalled = solver.solve_constraints(
                 model, kin.S, M, qfrc, efc, f_w, qp_iters, K, tol)
-        q2, v2 = integrator.euler_step(q, v, qacc, dt)
-        if proj is not None:
-            p_pos, p_vel = _sphere_step(model, efc, f_w2, p_pos, p_vel, p_rad, p_inv)
+        with span("smplsim.physics.integrate"):
+            q2, v2 = integrator.euler_step(q, v, qacc, dt)
+            if proj is not None:
+                p_pos, p_vel = _sphere_step(model, efc, f_w2, p_pos, p_vel, p_rad, p_inv)
 
-        bad = _bad(q) | _bad(v) | _bad(qacc)
-        b1 = bad[:, None]
-        power = power + torch.where(bad, torch.zeros_like(power),
-                                    (tau * v[:, 6:]).abs().sum(1))
-        if use_aba:
-            # the next substep's torque while this substep's (M, C) pair is
-            # live: bad rows take the reset torque and stale pose
-            tau = torch.where(b1, tau_reset, stable_pd_torque(model, M, C, q2, v2, target))
-            q_stale = torch.where(b1, reset_q, q)
-        q = torch.where(b1, reset_q, q2)
-        v = torch.where(b1, reset_v, v2)
-        if not use_aba:
-            M = torch.where(b1[..., None], M_reset, M)
-        C = torch.where(b1, C_reset, C)
-        f_w = torch.where(b1, torch.zeros_like(f_w2), f_w2)
-        nact = torch.maximum(nact, nactive)
-        stall = stall | stalled
-        gfc = efc.geom_floor_contact
+            bad = _bad(q) | _bad(v) | _bad(qacc)
+            b1 = bad[:, None]
+            power = power + torch.where(bad, torch.zeros_like(power),
+                                        (tau * v[:, 6:]).abs().sum(1))
+            if use_aba:
+                # the next substep's torque while this substep's (M, C) pair
+                # is live: bad rows take the reset torque and stale pose
+                tau = torch.where(b1, tau_reset, stable_pd_torque(model, M, C, q2, v2, target))
+                q_stale = torch.where(b1, reset_q, q)
+            q = torch.where(b1, reset_q, q2)
+            v = torch.where(b1, reset_v, v2)
+            if not use_aba:
+                M = torch.where(b1[..., None], M_reset, M)
+            C = torch.where(b1, C_reset, C)
+            f_w = torch.where(b1, torch.zeros_like(f_w2), f_w2)
+            nact = torch.maximum(nact, nactive)
+            stall = stall | stalled
+            gfc = efc.geom_floor_contact
     if use_aba:
         # the returned stale M: one dense CRBA at the last substep's pose
         M = dynamics.mass_matrix(model, kinematics.fk(model, q_stale))

@@ -9,7 +9,7 @@ the JAX package.
     with 6 substeps;
   * the One-Euro filter and RunningMeanStd (live, frozen, partially frozen,
     unfrozen) against utils/filters.py (float64, 1e-12);
-  * the profiler's Timer, annotate and trace (a Chrome trace file).
+  * the profiler's span and trace (a Chrome trace file).
 """
 import dataclasses
 import json
@@ -142,15 +142,26 @@ def test_running_mean_std_modes_match_jax():
 
 
 def test_profiler(tmp_path):
-    t = profiler.Timer()
-    with t:
-        torch.ones(8).sum()
-    dt = t.start().stop(torch.ones(3))
-    assert t.count == 2 and dt >= 0.0 and t.mean == pytest.approx(t.total / 2)
+    """span as a context and as a decorator: nothing recorded outside a
+    recording; inside trace(logdir) both nest in the span table and appear
+    in the Chrome trace beside the operations."""
+    @profiler.span("smplsim.test.product")
+    def product(x):
+        return (x @ x).sum()
+
+    profiler.clear()
+    with profiler.span("smplsim.test.region"):
+        product(torch.ones(4, 4))
+    assert profiler.span_table() == {}
     with profiler.trace(str(tmp_path / "tr")):
-        with profiler.annotate("port-region"):
-            (torch.ones(16, 16) @ torch.ones(16, 16)).sum()
+        with profiler.span("smplsim.test.region"):
+            assert product(torch.ones(16, 16)) == 16 ** 3
+    table = profiler.span_table()
+    assert set(table) == {"smplsim.test.region", "smplsim.test.region/smplsim.test.product"}
+    inner = table["smplsim.test.region/smplsim.test.product"]
+    assert inner["count"] == 1 and 0.0 < inner["host_s"] <= table["smplsim.test.region"]["host_s"]
     path = tmp_path / "tr" / "trace.json"
     assert path.exists()
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
-    assert "port-region" in names
+    assert {"smplsim.test.region", "smplsim.test.product", "aten::mm"} <= names
+    profiler.clear()
