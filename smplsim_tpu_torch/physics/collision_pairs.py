@@ -18,8 +18,14 @@ Knobs (the JAX package's, same defaults): SMPLSIM_CC_KEEP, SMPLSIM_CB_KEEP,
 SMPLSIM_BB_KEEP. Every selection is `top_k`: descending, first index wins
 ties, NaN ranks last.
 
+Every geom's world frame is computed once per call (`geom_frames`: center,
+rotation, segment ends, (B,G,...)), and each pair reads its two sides from
+those tables by a gather on the geom index; the products are elementwise,
+bit for bit the CPU's 3x3 matmul.
+
 The model may be shared or stacked: geom fields are read with the geom axis
-indexed from the right, (P,...) per pair or (B,P,...) per env and pair.
+indexed from the right, (G,...) or (P,...) shared, (B,G,...) or (B,P,...)
+per env.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from smplsim_tpu_torch import transforms as T
 from smplsim_tpu_torch.models.spec import GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, RobotModel
 from smplsim_tpu_torch.physics.algebra import cross
 from smplsim_tpu_torch.physics.kinematics import Kin
+from smplsim_tpu_torch.utils.profiler import count
 
 MAX_SELF = 12
 CC_KEEP = int(os.environ.get("SMPLSIM_CC_KEEP", 24))
@@ -114,6 +121,14 @@ def _pair_lists(parents, geom_body, geom_type, contype, conaffinity, excludes):
     return {"cc": to_np(cc), "cb": to_np(cb), "bb": to_np(bb)}
 
 
+def pair_lists(model: RobotModel) -> dict:
+    """The model's static pairs by family (`_pair_lists`), (P,2) each."""
+    contype = model.geom_contype or tuple(7 for _ in model.geom_type)
+    conaffinity = model.geom_conaffinity or tuple(1 for _ in model.geom_type)
+    return _pair_lists(model.parents, model.geom_body, model.geom_type,
+                       contype, conaffinity, model.contact_excludes)
+
+
 def _dot(a, b):
     return (a * b).sum(-1)
 
@@ -122,25 +137,42 @@ def _norm(a):
     return torch.sqrt((a * a).sum(-1))
 
 
-def _geom_world(model: RobotModel, kin: Kin, gidx: np.ndarray):
-    """World center (B,P,3), rotation (B,P,3,3) and body (P,) of geoms."""
-    body = np.asarray(model.geom_body, np.int64)[gidx]
+def _rotate(R, v):
+    """R v for R (...,3,3), v (...,3), as three broadcast multiply-adds: the
+    CPU's matmul of a 3x3 sums k = 0, 1, 2 in this order."""
+    return R[..., :, 0] * v[..., 0, None] + R[..., :, 1] * v[..., 1, None] \
+        + R[..., :, 2] * v[..., 2, None]
+
+
+def _compose(A, C):
+    """A C for (...,3,3) rotations, elementwise as `_rotate`."""
+    return A[..., :, 0:1] * C[..., 0:1, :] + A[..., :, 1:2] * C[..., 1:2, :] \
+        + A[..., :, 2:3] * C[..., 2:3, :]
+
+
+@dataclasses.dataclass
+class GeomFrames:
+    """Every geom's world frame: center and rotation, and the segment ends
+    of a capsule (a sphere's are its center, a box's are its center and
+    unused). (B,G,...)."""
+    pos: torch.Tensor       # (B,G,3)
+    rot: torch.Tensor       # (B,G,3,3)
+    seg_p: torch.Tensor     # (B,G,3) center - half-length * axis z
+    seg_q: torch.Tensor     # (B,G,3) center + half-length * axis z
+
+
+def geom_frames(model: RobotModel, kin: Kin) -> GeomFrames:
+    """World frames of all G geoms from the body frames, once per FK."""
+    dtype, dev = kin.xpos.dtype, kin.xpos.device
+    body = torch.as_tensor(np.asarray(model.geom_body, np.int64), device=dev)
     Rb = kin.xmat[:, body]
-    gpos = model.geom_pos[..., gidx, :].to(Rb.dtype)
-    pos = kin.xpos[:, body] + (Rb @ gpos[..., None])[..., 0]
-    Rg = Rb @ T.quat_to_matrix(model.geom_quat[..., gidx, :].to(Rb.dtype))
-    return pos, Rg, body
-
-
-def _segment(model: RobotModel, kin: Kin, gidx: np.ndarray):
-    """Capsule/sphere as segment ends (B,P,3) and radius, (P,) or (B,P)."""
-    pos, Rg, body = _geom_world(model, kin, gidx)
-    size = model.geom_size[..., gidx, :].to(pos.dtype)
-    is_cap = torch.as_tensor(
-        [model.geom_type[g] == GEOM_CAPSULE for g in gidx], dtype=pos.dtype,
-        device=pos.device)
-    half = (size[..., 1] * is_cap)[..., None] * Rg[..., :, 2]
-    return pos - half, pos + half, size[..., 0], body
+    pos = kin.xpos[:, body] + _rotate(Rb, model.geom_pos.to(dtype))
+    rot = _compose(Rb, T.quat_to_matrix(model.geom_quat.to(dtype)))
+    is_cap = torch.as_tensor([t == GEOM_CAPSULE for t in model.geom_type], dtype=dtype,
+                             device=dev)
+    half = (model.geom_size[..., 1].to(dtype) * is_cap)[..., None] * rot[..., :, 2]
+    count("rows.geom_frames", len(model.geom_type))
+    return GeomFrames(pos, rot, pos - half, pos + half)
 
 
 def _seg_seg_closest(p1, q1, p2, q2, eps=1e-12):
@@ -564,23 +596,35 @@ def _combine(model, g1, g2, dtype):
     return mu.to(dtype), margin.to(dtype)
 
 
-def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
+def self_contacts(model: RobotModel, kin: Kin, keeps=None,
+                  frames: GeomFrames | None = None) -> SelfContacts:
     """All body-body contact candidates, the deepest MAX_SELF selected.
-    keeps = (CC_KEEP, CB_KEEP, BB_KEEP) by default."""
+    keeps = (CC_KEEP, CB_KEEP, BB_KEEP) by default; `frames` are
+    geom_frames(model, kin), computed here when not given."""
     cc_keep, cb_keep, bb_keep = (CC_KEEP, CB_KEEP, BB_KEEP) if keeps is None else keeps
+    if frames is None:
+        frames = geom_frames(model, kin)
     B = kin.xpos.shape[0]
     dtype, dev = kin.xpos.dtype, kin.xpos.device
-    contype = model.geom_contype or tuple(7 for _ in model.geom_type)
-    conaffinity = model.geom_conaffinity or tuple(1 for _ in model.geom_type)
-    pl = _pair_lists(model.parents, model.geom_body, model.geom_type,
-                     contype, conaffinity, model.contact_excludes)
+    pl = pair_lists(model)
+    count("rows.pair_sides", 2 * sum(len(v) for v in pl.values()))
     out = {k: [] for k in ("dist", "pos", "normal", "b1", "b2", "mu", "margin")}
+    geom_body = np.asarray(model.geom_body, np.int64)
+    # per geom: segment centers and half-lengths (the culls' bounds), radii;
+    # each pair reads its sides from these and the frames by gather_rows
+    center = 0.5 * (frames.seg_p + frames.seg_q)
+    half_len = 0.5 * _norm(frames.seg_q - frames.seg_p)
+    radius = model.geom_size[..., 0].to(dtype)
 
     def per_pair(x, nd: int = 1):
         """(P,...) per pair or (B,P,...) per env and pair, nd dims per env,
         -> (B,P,...)."""
         x = torch.as_tensor(x, device=dev)
         return x.expand((B,) + x.shape[x.dim() - nd:])
+
+    def indices(g1, g2):
+        """The pair geoms and their bodies, (P,) each, in one copy to the device."""
+        return torch.as_tensor(np.stack([g1, g2, geom_body[g1], geom_body[g2]]), device=dev)
 
     def cull(d_low, keep, tensors):
         _, idx, _ = top_k(-d_low, keep)
@@ -592,15 +636,17 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
 
     if len(pl["cc"]):
         g1, g2 = pl["cc"][:, 0], pl["cc"][:, 1]
-        p1, q1, r1, bb1 = _segment(model, kin, g1)
-        p2, q2, r2, bb2 = _segment(model, kin, g2)
         mu, margin = _combine(model, g1, g2, dtype)
-        r1, r2, mu, margin, bb1, bb2 = map(per_pair, (r1, r2, mu, margin, bb1, bb2))
+        r1, r2 = radius[..., g1], radius[..., g2]
+        r1, r2, mu, margin, gg1, gg2, bb1, bb2 = map(per_pair, (r1, r2, mu, margin,
+                                                              *indices(g1, g2)))
         if len(g1) > cc_keep:
-            d_low = (_norm(0.5 * (p1 + q1) - 0.5 * (p2 + q2)) - 0.5 * _norm(q1 - p1)
-                     - 0.5 * _norm(q2 - p2) - r1 - r2)
-            p1, q1, p2, q2, r1, r2, mu, margin, bb1, bb2 = cull(
-                d_low, cc_keep, (p1, q1, p2, q2, r1, r2, mu, margin, bb1, bb2))
+            d_low = (_norm(gather_rows(center, gg1) - gather_rows(center, gg2))
+                     - gather_rows(half_len, gg1) - gather_rows(half_len, gg2) - r1 - r2)
+            r1, r2, mu, margin, bb1, bb2, gg1, gg2 = cull(
+                d_low, cc_keep, (r1, r2, mu, margin, bb1, bb2, gg1, gg2))
+        p1, q1 = gather_rows(frames.seg_p, gg1), gather_rows(frames.seg_q, gg1)
+        p2, q2 = gather_rows(frames.seg_p, gg2), gather_rows(frames.seg_q, gg2)
         c1, c2, par = _seg_seg_closest(p1, q1, p2, q2)
         delta = c2 - c1
         gap = _norm(delta)
@@ -625,16 +671,17 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
 
     if len(pl["cb"]):
         g1, g2 = pl["cb"][:, 0], pl["cb"][:, 1]        # round geom, box
-        p1, q1, r1, bb1 = _segment(model, kin, g1)
-        bpos, bR, bb2 = _geom_world(model, kin, g2)
         mu, margin = _combine(model, g1, g2, dtype)
         half = per_pair(model.geom_size[..., g2, :].to(dtype), 2)
-        r1, mu, margin, bb1, bb2 = map(per_pair, (r1, mu, margin, bb1, bb2))
+        r1, mu, margin, gg1, gg2, bb1, bb2 = map(per_pair, (radius[..., g1], mu, margin,
+                                                          *indices(g1, g2)))
         if len(g1) > cb_keep:
-            d_low = (_norm(0.5 * (p1 + q1) - bpos) - 0.5 * _norm(q1 - p1) - r1
-                     - _norm(half))
-            p1, q1, r1, bpos, bR, half, mu, margin, bb1, bb2 = cull(
-                d_low, cb_keep, (p1, q1, r1, bpos, bR, half, mu, margin, bb1, bb2))
+            d_low = (_norm(gather_rows(center, gg1) - gather_rows(frames.pos, gg2))
+                     - gather_rows(half_len, gg1) - r1 - _norm(half))
+            r1, half, mu, margin, bb1, bb2, gg1, gg2 = cull(
+                d_low, cb_keep, (r1, half, mu, margin, bb1, bb2, gg1, gg2))
+        p1, q1 = gather_rows(frames.seg_p, gg1), gather_rows(frames.seg_q, gg1)
+        bpos, bR = gather_rows(frames.pos, gg2), gather_rows(frames.rot, gg2)
         d_cb, p_cb, n_cb = capsule_box_contacts(_mtv(bR, p1 - bpos), _mtv(bR, q1 - bpos),
                                                 half, r1)
         p_w = bpos[..., None, :] + p_cb @ bR.transpose(-1, -2)
@@ -646,16 +693,17 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None) -> SelfContacts:
 
     if len(pl["bb"]):
         g1, g2 = pl["bb"][:, 0], pl["bb"][:, 1]
-        pos1, R1, bb1 = _geom_world(model, kin, g1)
-        pos2, R2, bb2 = _geom_world(model, kin, g2)
         mu, margin = _combine(model, g1, g2, dtype)
         h1 = per_pair(model.geom_size[..., g1, :].to(dtype), 2)
         h2 = per_pair(model.geom_size[..., g2, :].to(dtype), 2)
-        mu, margin, bb1, bb2 = map(per_pair, (mu, margin, bb1, bb2))
+        mu, margin, gg1, gg2, bb1, bb2 = map(per_pair, (mu, margin, *indices(g1, g2)))
         if len(g1) > bb_keep:
-            d_low = _norm(pos1 - pos2) - (_norm(h1) + _norm(h2))
-            pos1, R1, h1, pos2, R2, h2, mu, margin, bb1, bb2 = cull(
-                d_low, bb_keep, (pos1, R1, h1, pos2, R2, h2, mu, margin, bb1, bb2))
+            d_low = (_norm(gather_rows(frames.pos, gg1) - gather_rows(frames.pos, gg2))
+                     - (_norm(h1) + _norm(h2)))
+            h1, h2, mu, margin, bb1, bb2, gg1, gg2 = cull(
+                d_low, bb_keep, (h1, h2, mu, margin, bb1, bb2, gg1, gg2))
+        pos1, R1 = gather_rows(frames.pos, gg1), gather_rows(frames.rot, gg1)
+        pos2, R2 = gather_rows(frames.pos, gg2), gather_rows(frames.rot, gg2)
         d_bb, p_bb, n_bb, act_bb = _box_box(pos1, R1, h1, pos2, R2, h2, margin)
         d_bb = torch.where(act_bb, d_bb, torch.full_like(d_bb, BIG))
         # mjc_BoxBox emits at most 8 points: keep the deepest 8 of 25 slots

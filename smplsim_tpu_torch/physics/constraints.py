@@ -26,8 +26,9 @@ import torch
 from smplsim_tpu_torch import transforms as T
 from smplsim_tpu_torch.models.spec import GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, RobotModel
 from smplsim_tpu_torch.physics.algebra import cross
-from smplsim_tpu_torch.physics.collision_pairs import (BIG, MAX_SELF, _box_sdf, _geom_world,
-                                                       _segment, self_contacts, top_k)
+from smplsim_tpu_torch.physics.collision_pairs import (BIG, MAX_SELF, GeomFrames, _box_sdf,
+                                                       _rotate, geom_frames, self_contacts,
+                                                       top_k)
 from smplsim_tpu_torch.physics.kinematics import Kin, body_twists
 from smplsim_tpu_torch.utils.profiler import span
 
@@ -84,6 +85,32 @@ def _candidate_meta(geom_type: tuple[int, ...]):
             np.asarray(is_round, np.float64))
 
 
+def floor_points(model: RobotModel, kin: Kin):
+    """The floor candidates of `_candidate_meta` in the world, (B,P,3), and
+    the z axis of each one's geom, (B,P,3): each point's offset in its
+    body's frame, rotated by three broadcast multiply-adds, bit for bit the
+    per-point product. (Offsets from the geom frames would round the points
+    differently by an ulp, enough to part the float64 getup Fall from
+    simbench/reference's.)"""
+    cgeom_np, sign_np, _ = _candidate_meta(model.geom_type)
+    dtype, dev = kin.xpos.dtype, kin.xpos.device
+    cgeom = torch.as_tensor(cgeom_np, device=dev)
+    cbody = torch.as_tensor(np.asarray(model.geom_body, np.int64)[cgeom_np], device=dev)
+    g_size = model.geom_size.to(dtype)[..., cgeom, :]
+    is_cap = torch.as_tensor([model.geom_type[g] == GEOM_CAPSULE for g in cgeom_np],
+                             device=dev)
+    # capsules keep their half-length in size[1] and run along geom-frame z
+    size_eff = torch.cat([g_size[..., :2],
+                          torch.where(is_cap, g_size[..., 1], g_size[..., 2])[..., None]], dim=-1)
+    g_quat = model.geom_quat.to(dtype)[..., cgeom, :]
+    offset = model.geom_pos.to(dtype)[..., cgeom, :] + T.quat_rotate(
+        g_quat, torch.as_tensor(sign_np, dtype=dtype, device=dev) * size_eff)
+    R_b = kin.xmat[:, cbody]                                   # (B,P,3,3)
+    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    return (kin.xpos[:, cbody] + _rotate(R_b, offset),
+            _rotate(R_b, T.quat_rotate(g_quat, ez)))
+
+
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[..., idx] per env: x (n,) shared or (B,n) per env, idx (B,K)."""
     return x.expand(idx.shape[:1] + x.shape[-1:]).gather(1, idx)
@@ -133,7 +160,7 @@ def _rows(V, W6, body2, body1=None):
     return (W6 * Vb[:, :, None, :]).sum(-1)
 
 
-def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
+def _sphere_rows(model: RobotModel, frames: GeomFrames, V, spheres, cK, cB, solimp):
     """Contact rows of free spheres against the humanoid's geoms: the
     MAX_PROJC deepest of the P x G candidates (sphere-capsule by segment
     distance, sphere-box by the box SDF), pyramid rows with the world
@@ -144,11 +171,10 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     sp_pos, sp_vel, sp_rad, sp_inv = spheres
     B, P, _ = sp_pos.shape
     G = model.ngeom
-    gidx = np.arange(G)
     rad = sp_rad[:, :, None]                                   # (B,P,1)
     c = sp_pos[:, :, None, :]                                  # (B,P,1,3)
-    seg_p, seg_q, seg_r, _ = _segment(model, kin, gidx)        # (B,G,3), (G,) or (B,G)
-    seg_r = seg_r[..., None, :]                                # over the spheres
+    seg_p, seg_q = frames.seg_p, frames.seg_q                 # (B,G,3)
+    seg_r = model.geom_size[..., 0].to(seg_p.dtype)[..., None, :]    # over the spheres
     dseg = (seg_q - seg_p)[:, None]                            # (B,1,G,3)
     len2 = (dseg * dseg).sum(-1).clamp_min(1e-12)
     t = torch.clamp(((c - seg_p[:, None]) * dseg).sum(-1) / len2, 0.0, 1.0)
@@ -158,7 +184,7 @@ def _sphere_rows(model: RobotModel, kin: Kin, V, spheres, cK, cB, solimp):
     dist_seg = gap - seg_r - rad
     pos_seg = c + n_seg * (rad + 0.5 * dist_seg)[..., None]
 
-    bpos, bRot, _ = _geom_world(model, kin, gidx)              # (B,G,3), (B,G,3,3)
+    bpos, bRot = frames.pos, frames.rot                        # (B,G,3), (B,G,3,3)
     lp = (bRot[:, None].transpose(-1, -2) @ (c - bpos[:, None])[..., None])[..., 0]
     sdf, n_out = _box_sdf(lp, model.geom_size.to(lp.dtype)[..., None, :, :])
     dist_box = sdf - rad
@@ -213,6 +239,7 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     solimp, solref = f(model.floor_solimp)[..., None, :], f(model.floor_solref)[..., None, :]
     cK, cB = solref_kb(solref, solimp)
     V = body_twists(model, kin, qvel)                          # (B,J,6)
+    frames = geom_frames(model, kin)                           # every geom's, once
 
     # ---------------- joint limits ----------------
     hinge = qpos[:, 7:]
@@ -234,21 +261,14 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     l_J = torch.nn.functional.one_hot(lidx + 6, nv).to(dtype) * l_sign[..., None]
 
     # ---------------- floor contacts ----------------
-    cgeom_np, sign_np, round_np = _candidate_meta(model.geom_type)
+    cgeom_np, _, round_np = _candidate_meta(model.geom_type)
     cgeom = torch.as_tensor(cgeom_np, device=dev)
     cbody_np = np.asarray(model.geom_body, np.int64)[cgeom_np]
     cbody = torch.as_tensor(cbody_np, device=dev)
     g_size = f(model.geom_size)[..., cgeom, :]
     is_cap = torch.as_tensor([model.geom_type[g] == GEOM_CAPSULE for g in cgeom_np],
                              device=dev)
-    # capsules keep their half-length in size[1] and run along geom-frame z
-    size_eff = torch.cat([g_size[..., :2],
-                          torch.where(is_cap, g_size[..., 1], g_size[..., 2])[..., None]], dim=-1)
-    g_quat = f(model.geom_quat)[..., cgeom, :]
-    offset = f(model.geom_pos)[..., cgeom, :] + T.quat_rotate(
-        g_quat, torch.as_tensor(sign_np, dtype=dtype, device=dev) * size_eff)
-    R_b = kin.xmat[:, cbody]                                   # (B,P,3,3)
-    p_world = kin.xpos[:, cbody] + (R_b @ offset[..., None])[..., 0]
+    p_world, axis_w = floor_points(model, kin)
     radius = torch.as_tensor(round_np, dtype=dtype, device=dev) * g_size[..., 0]
     dist = p_world[..., 2] - radius
     incmargin = f(model.geom_margin)[..., cgeom] + f(model.floor_margin)[..., None]
@@ -256,7 +276,6 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     con_pos = torch.stack([p_world[..., 0], p_world[..., 1],
                            p_world[..., 2] - radius - 0.5 * dist], dim=-1)
     ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
-    axis_w = (R_b @ T.quat_rotate(g_quat, ez)[..., None])[..., 0]
     member = torch.as_tensor(np.arange(model.ngeom)[:, None] == cgeom_np[None, :], device=dev)
     geom_floor_contact = (cand_active[:, None, :] & member).any(-1)
 
@@ -292,7 +311,7 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     c_R = ((1.0 - c_imp) / c_imp * diag_approx)[..., None].expand(-1, -1, 4)
 
     # ---------------- body-body (self) contacts ----------------
-    sc = self_contacts(model, kin, keeps)
+    sc = self_contacts(model, kin, keeps, frames)
     st1, st2 = make_frame(sc.normal)
     W6_s = _pyramid(sc.normal, st1, st2, sc.friction, sc.pos)
     s_vel = _rows(V, W6_s, sc.body2, sc.body1)
@@ -308,7 +327,7 @@ def make_efc(model: RobotModel, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor
     minus1 = lambda n: torch.full((B, n), -1, dtype=torch.long, device=dev)
     if spheres is not None:
         W6_p, p_body, p_aref, p_R, p_active, proj_sphere = _sphere_rows(
-            model, kin, V, spheres, cK, cB, solimp)
+            model, frames, V, spheres, cK, cB, solimp)
     else:
         zP = lambda *s: torch.zeros((B, MAX_PROJC) + s, dtype=dtype, device=dev)
         W6_p, p_aref, p_R = zP(4, 6), zP(4), zP(4) + 1.0

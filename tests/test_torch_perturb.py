@@ -61,7 +61,7 @@ def _spheres(tm, qpos, seed=0):
     at them; env 2's first sphere out of reach."""
     rng = np.random.RandomState(seed)
     kin = kinematics.fk(tm, T(qpos))
-    gpos = collision_pairs._geom_world(tm, kin, np.arange(tm.ngeom))[0].numpy()
+    gpos = collision_pairs.geom_frames(tm, kin).pos.numpy()
     pos = np.stack([gpos[:, 0], gpos[:, 2]], 1) + [[0.2, 0.0, 0.0], [0.15, 0.0, 0.0]]
     pos[2, 0] = [50.0, 0.0, 1.0]
     vel = np.stack([[-6.0, 0.0, 0.0], [-4.0, 0.5, 0.0]])[None] + rng.randn(len(qpos), 2, 3)

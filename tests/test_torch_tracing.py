@@ -4,7 +4,7 @@
     record function;
   * under torch.profiler one step_autoreset gives the whole span tree (paths
     and counts as the code implies), every span in the profiler's events,
-    the two counters, and the same aten operations and state as without;
+    the four counters, and the same aten operations and state as without;
   * self time on a hand-built nest under a fake clock, the counters' fold;
   * PPO's rollout, policy and update spans.
 """
@@ -19,6 +19,7 @@ from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
 from smplsim_tpu_torch.envs.base import clone_generator
 from smplsim_tpu_torch.learning.ppo import PPO, PPOConfig
 from smplsim_tpu_torch.models import registry
+from smplsim_tpu_torch.physics import collision_pairs
 from smplsim_tpu_torch.utils import profiler
 
 B = 8
@@ -123,7 +124,10 @@ def test_step_autoreset_span_tree_and_counters(speed):
 
     c = profiler.counters()
     done = out.terminated | out.truncated
-    assert c == {"env.rows_reset": B, "env.rows_finished": float(done.sum())}
+    pairs = sum(len(v) for v in collision_pairs.pair_lists(env.model).values())
+    assert c == {"env.rows_reset": B, "env.rows_finished": float(done.sum()),
+                 "rows.geom_frames": SUBSTEPS * env.model.ngeom,
+                 "rows.pair_sides": SUBSTEPS * 2 * pairs}
     assert c["env.rows_finished"] >= 2 and bool(done[3]) and bool(done[6])
     profiler.clear()
 
