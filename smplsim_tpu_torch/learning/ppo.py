@@ -24,6 +24,13 @@ the six metrics are averaged over it (nactive_max too, as the JAX pmean
 does). The advantage normalisation and the permutations stay per rank.
 parallel/rollout.py composes the sharded step.
 
+Spans (utils/profiler.py, live only under torch.profiler):
+smplsim.learning.rollout with .policy inside, smplsim.learning.update with
+.advantages (the values, GAE, the advantage normalisation and the norm
+merge) and .minibatch (one policy step and one value step). Counters:
+learning.minibatch_steps (net steps) and learning.grad_clipped (net steps
+whose global norm reached max_grad_norm, a device tensor).
+
 Hyperparameters mirror the JAX package's PPOConfig: gamma 0.99, tau 0.95,
 clip 0.2, 10 epochs x 4 minibatches, policy lr 5e-5, value lr 3e-4, fixed
 log_std -2.5. The nets take the env model's dtype and device.
@@ -42,7 +49,7 @@ from smplsim_tpu_torch.learning.nets import (PolicyGaussian, ValueNet, gaussian_
 from smplsim_tpu_torch.learning.running_norm import (RunningNorm, norm_init, norm_update,
                                                      normalize)
 from smplsim_tpu_torch.parallel.mesh import pmean
-from smplsim_tpu_torch.utils.profiler import span
+from smplsim_tpu_torch.utils.profiler import count, profiling, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +108,12 @@ def state_tensors(ts: TrainState, env: bool = True) -> list:
 
 def clip_by_global_norm(grads: list, max_norm: float) -> list:
     """optax.clip_by_global_norm: (g / norm) * max_norm where the global
-    norm is >= max_norm, g unchanged below it; no host sync."""
+    norm is >= max_norm, g unchanged below it; no host sync. Counter
+    `learning.grad_clipped`: the calls whose norm reached max_norm."""
     g_norm = torch.sqrt(sum(g.square().sum() for g in grads))
     keep = g_norm < max_norm
+    if profiling():
+        count("learning.grad_clipped", ~keep)
     return [torch.where(keep, g, (g / g_norm) * max_norm) for g in grads]
 
 
@@ -175,6 +185,7 @@ class PPO:
             p.grad = g
         opt.step()
         opt.zero_grad(set_to_none=True)
+        count("learning.minibatch_steps", 1)
 
     @span("smplsim.learning.update")
     def update(self, ts: TrainState, env_states, traj: dict, perms: torch.Tensor | None = None,
@@ -186,7 +197,7 @@ class PPO:
         shard (see the module docstring). Returns the next TrainState
         (epoch + 1) and six 0-d metric tensors."""
         cfg = self.cfg
-        with torch.no_grad():
+        with torch.no_grad(), span("smplsim.learning.advantages"):
             nobs_t = normalize(ts.obs_norm, traj["obs"], cfg.obs_clip)
             values = ts.value(nobs_t)                                          # (T, B)
             last_value = ts.value(normalize(ts.obs_norm, env_states.obs, cfg.obs_clip))
@@ -206,15 +217,17 @@ class PPO:
         mb = n // cfg.num_minibatches
         for perm in perms:
             for i in range(cfg.num_minibatches):
-                idx = perm[i * mb:(i + 1) * mb]
-                mean, log_std = ts.policy(nobs[idx])
-                ratio = torch.exp(gaussian_log_prob(mean, log_std, action[idx]) - logp_old[idx])
-                a = adv[idx]
-                surr = torch.minimum(
-                    ratio * a, ratio.clamp(1.0 - cfg.clip_epsilon, 1.0 + cfg.clip_epsilon) * a)
-                self._apply(-surr.mean(), ts.policy, ts.policy_opt, group)
-                self._apply((ts.value(nobs[idx]) - ret[idx]).square().mean(), ts.value,
-                            ts.value_opt, group)
+                with span("smplsim.learning.minibatch"):
+                    idx = perm[i * mb:(i + 1) * mb]
+                    mean, log_std = ts.policy(nobs[idx])
+                    ratio = torch.exp(gaussian_log_prob(mean, log_std, action[idx])
+                                      - logp_old[idx])
+                    a = adv[idx]
+                    surr = torch.minimum(
+                        ratio * a, ratio.clamp(1.0 - cfg.clip_epsilon, 1.0 + cfg.clip_epsilon) * a)
+                    self._apply(-surr.mean(), ts.policy, ts.policy_opt, group)
+                    self._apply((ts.value(nobs[idx]) - ret[idx]).square().mean(), ts.value,
+                                ts.value_opt, group)
         metrics = {
             "reward_mean": traj["reward"].mean(),
             "episode_done_frac": traj["done"].to(dtype).mean(),

@@ -6,7 +6,8 @@
     and counts as the code implies), every span in the profiler's events,
     the four counters, and the same aten operations and state as without;
   * self time on a hand-built nest under a fake clock, the counters' fold;
-  * PPO's rollout, policy and update spans.
+  * PPO's rollout, policy and update spans; the update's advantages and
+    minibatch spans under it, and its two counters.
 """
 import dataclasses
 
@@ -200,4 +201,29 @@ def test_ppo_rollout_policy_and_update_spans():
     assert t["smplsim.learning.rollout/smplsim.learning.policy"]["count"] == 2
     assert t["smplsim.learning.rollout/" + ROOT]["count"] == 2
     assert t["smplsim.learning.update"]["count"] == 1
+    profiler.clear()
+
+
+@pytest.mark.parametrize("max_grad_norm,clipped", [(1e-9, 8), (1e9, 0)])
+def test_ppo_update_spans_and_counters(max_grad_norm, clipped):
+    """2 epochs x 2 minibatches: 4 minibatch spans and one advantages span
+    under the update, 8 net steps counted, and every step (or none) whose
+    global gradient norm reached max_grad_norm counted as clipped."""
+    m = registry.default_humanoid(torch.float32, device="cpu")
+    env = HumanoidSpeed(m, SpeedConfig(control_frequency_inv=1), keeps=(24, 16, 8),
+                        qp_iters=4, qp_rows=32, qp_tol=1e-4)
+    ppo = PPO(env, PPOConfig(num_envs=4, horizon=2, opt_num_epochs=2, num_minibatches=2,
+                             policy_widths=(16,), value_widths=(16,),
+                             max_grad_norm=max_grad_norm))
+    ts = ppo.init(0)
+    st, traj = ppo.rollout(ts)
+    profiler.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ppo.update(ts, st, traj)
+    t = profiler.span_table()
+    up = "smplsim.learning.update"
+    assert {p: r["count"] for p, r in t.items()} == {
+        up: 1, up + "/smplsim.learning.advantages": 1, up + "/smplsim.learning.minibatch": 4}
+    assert profiler.counters() == {"learning.minibatch_steps": 8,
+                                   "learning.grad_clipped": clipped}
     profiler.clear()
