@@ -2,7 +2,17 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+main() runs the phases below in order (PHASES), each a function that takes
+by name what earlier phases returned. A failed check prints a FAIL line and
+the phase goes on; a phase that raises prints its traceback and the next
+phase runs; a phase whose input an earlier phase did not return is not run.
+Each of the three is recorded as a failure. Every phase's seconds are
+printed as it ends. The run ends with the seconds of every phase, the total,
+the failures, the card's name and power limit, and the result object as the
+last line; it exits 1 if anything failed, else 0. Without a CUDA card it
+stops at once.
+
+Phases:
   1. environment: torch, CUDA, the card's name and power limit; TF32 off;
      build the CUDA kernels from smplsim_tpu_torch/ops/csrc with nvcc; the
      registers and local memory (cudaFuncGetAttributes) of every
@@ -311,15 +321,14 @@ Phases 3, 6, 9, 14, 16, 17's projectile run, 18's training, 18's eval,
 19's plan, 20's and 21's runs, 21's float64 step, 22's two runs, 23's,
 24's, 25's and 28's runs, 31's iteration, each rank's iterations in 32
 and plan in 33, and 34's four gate runs each set every launch count to 0
-just before and read them just after. The third-to-last line is the
-`kernels` JSON object, the
-line after it the card's name and power limit; the last line is the result
-object.
+just before and read them just after, and check them against their
+expected numbers.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import math
 import os
@@ -327,6 +336,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from types import SimpleNamespace
 
 import numpy as np
@@ -338,6 +348,8 @@ B_MAIN = 4096
 STEPS = 16
 CFI = 15
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
+# phases 4, 7 and 17: envs of the card-vs-CPU checks
+CMP_ENVS = 16
 # phase 7: (action scale, substeps per control step, control steps)
 TORQUE_CMP = ((0.5, 3, 1), (0.003, CFI, 2))
 # phases 8-10: trajectory points (= iLQR horizon), substeps of the float64
@@ -415,6 +427,8 @@ SHARDED_WORLD = 2
 SHARDED_ITERS = 2
 CEM_RANK_SAMPLES = 64
 RANKS_TIMEOUT = 900
+# phases 18 and 32: the PPOConfig of the float64 PPO.update card vs CPU
+UPDATE_CFG = dict(num_envs=64, horizon=8, policy_widths=(64, 64), value_widths=(64, 64))
 # phase 34: the product gate (tools/gate_f32_torch.py, 150 control steps
 # each, 64 x 150 for getup) cut to this run's time. One env steps
 # launch-bound: on an H100 80GB HBM3 at 700 W, 0.72-0.75 s per control
@@ -442,14 +456,20 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
+# every failed check, crashed phase and phase not run, in order: main()
+# lists them at the end and exits 1 if there is any
+FAILURES: list[str] = []
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
-    sys.exit(1)
+    FAILURES.append(msg)
 
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
+        return
     print(f"  ok: {msg}", flush=True)
 
 
@@ -459,6 +479,7 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
+        return "card unknown (nvidia-smi failed)"
     return out.stdout.strip().splitlines()[0]
 
 
@@ -677,14 +698,17 @@ def time_qp(qp, build, A, b, a, f0, it, tol, converged_only=False,
     return dict(max_abs_err=(fk - fp)[ok].abs().amax().item(),
                 max_rel_err=((fk - fp).abs().amax(1)
                              / fp.abs().amax(1).clamp_min(1e-30))[ok].amax().item(),
-                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms, bound_by=by,
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 previous_ms=prev, iterations_mean=n_it / Bn, iterations_max=int(its.max()))
 
 
-def edge_cases(linalg, dev) -> None:
+def edge_cases(dev) -> None:
     """Phase 11: Kernels C and D against their plain versions on random SPD
     systems at every dispatch shape, with garbage above the diagonal and a
     NaN system in the batch."""
+    from smplsim_tpu_torch.ops import linalg
+
+    print("phase 11: kernels C and D on edge cases", flush=True)
     g = torch.Generator(device=dev).manual_seed(11)
     worst = {}
 
@@ -758,10 +782,13 @@ def edge_cases(linalg, dev) -> None:
     print("  ok: 7.0 and NaN above the diagonal change no bit of C's or D's results", flush=True)
 
 
-def edge_cases_ab(linalg, qp, dev) -> None:
+def edge_cases_ab(dev) -> None:
     """Phase 12: Kernels A and B against their plain versions at every shape
     their dispatch tells apart, on degenerate inputs and with a NaN system
     in the batch."""
+    from smplsim_tpu_torch.ops import linalg, qp
+
+    print("phase 12: kernels A and B on edge cases", flush=True)
     g = torch.Generator(device=dev).manual_seed(12)
     worst = {}
 
@@ -897,10 +924,13 @@ def edge_cases_ab(linalg, qp, dev) -> None:
                           f"worst over the edge cases: {val:.3e} <= {tol:g}")
 
 
-def edge_cases_e(linalg, dev) -> None:
+def edge_cases_e(dev) -> None:
     """Phase 13: Kernel E against its plain version at every route of its
     shape dispatch, with garbage above the diagonal and a NaN system in the
     batch."""
+    from smplsim_tpu_torch.ops import linalg
+
+    print("phase 13: kernel E on edge cases", flush=True)
     g = torch.Generator(device=dev).manual_seed(13)
     worst, routes = {}, set()
     garbage = lambda M, fill: torch.tril(M) + torch.triu(torch.full_like(M, fill), 1)
@@ -989,11 +1019,10 @@ def substep_inputs(model, state, act, qp_rows: int = QP["qp_rows"]) -> dict:
           flush=True)
     return dict(chol={"m=1,diag": (M_prev, rhs1, diag1),
                       f"m={rhs33.shape[-1]}": (M, rhs33, None)},
-                qp=(A_qp, b_qp, rows.actf, rows.f0),
-                full_rows=(rows.actf.sum(1) == K).float().mean().item())
+                qp=(A_qp, b_qp, rows.actf, rows.f0))
 
 
-def hold_f(tag: str, model, qpos, keeps=None, timed: bool = True) -> dict:
+def hold_f(tag: str, model, qpos, keeps=None, timed: bool = True) -> None:
     """Kernel F (ops/collision.py) against the plain self_contacts on the
     geom frames of `qpos` (B_MAIN envs of the main path), in the model's
     dtype and in float64. Per dtype: the share of envs whose selected
@@ -1007,7 +1036,6 @@ def hold_f(tag: str, model, qpos, keeps=None, timed: bool = True) -> dict:
     from smplsim_tpu_torch.physics import collision_pairs as cp, kinematics
 
     keeps = (cp.CC_KEEP, cp.CB_KEEP, cp.BB_KEEP) if keeps is None else tuple(keeps)
-    out = {}
     for dtype in (model.dtype, torch.float64):
         name = str(dtype).replace("torch.", "")
         m = model.to(dtype)
@@ -1058,11 +1086,8 @@ def hold_f(tag: str, model, qpos, keeps=None, timed: bool = True) -> dict:
             ms = cuda_ms(lambda: cp.self_contacts(m, kin, keeps, frames), 20)
             plain = cuda_ms(lambda: cp.self_contacts_plain(m, kin, keeps, frames), 3)
             bms, by = bound_ms(nbytes, 0.0, dtype)
-            r.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
             print(f"  {tag}{name}: Kernel F {ms:.4f} ms, plain {plain:.3f} ms, bound "
                   f"{bms:.5f} ms ({by}) at B = {B}", flush=True)
-        out[name] = r
-    return out
 
 
 @functools.lru_cache(maxsize=1)
@@ -1097,7 +1122,7 @@ def synthetic_models(dev) -> dict:
                 xbuild_s=time.time() - t0)
 
 
-def kernel_f_paths(model, state, dev) -> dict:
+def kernel_f_paths(model, state, dev) -> None:
     """Phase 2's Kernel F checks, ahead of A and B: hold_f on the main path's
     states, with no cull, on the first 1,600 envs, and on 3 control steps of
     phase 20's β batch and phase 21's SMPLX humanoid (the SMPLX one with no
@@ -1108,9 +1133,9 @@ def kernel_f_paths(model, state, dev) -> dict:
     from smplsim_tpu_torch.ops import collision
 
     wide = (10**6,) * 3
-    out = {"F": hold_f("", model, state.phys.qpos),
-           "F wide": hold_f("wide keeps ", model, state.phys.qpos, keeps=wide, timed=False),
-           "F B=1600": hold_f("B=1600 ", model, state.phys.qpos[:1600])}
+    hold_f("", model, state.phys.qpos)
+    hold_f("wide keeps ", model, state.phys.qpos, keeps=wide, timed=False)
+    hold_f("B=1600 ", model, state.phys.qpos[:1600])
     bodies = synthetic_models(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for tag, m in (("beta", tile_model(bodies["stacked"], B_MAIN)), ("smplx", bodies["xmodel"])):
@@ -1121,14 +1146,13 @@ def kernel_f_paths(model, state, dev) -> dict:
         n_f = collision.self_contacts.launches
         check(n_f == 3 * CFI, f"{tag}: self_contacts (Kernel F) launched {n_f} = 15 x 3 times "
                               "in 3 control steps")
-        out[f"F {tag}"] = hold_f(f"{tag} ", m, st.phys.qpos)
-    out["F smplx wide"] = hold_f("smplx wide keeps ", m, st.phys.qpos, keeps=wide, timed=False)
-    return out
+        hold_f(f"{tag} ", m, st.phys.qpos)
+    hold_f("smplx wide keeps ", m, st.phys.qpos, keeps=wide, timed=False)
 
 
 def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
              tol32: float = QP["qp_tol"], converged_only: bool = False,
-             gate_forms: bool = True) -> dict:
+             gate_forms: bool = True) -> None:
     """Kernels A (chol_solve at m=1 + diag and m = 1 + K) and B (newton_qp
     with `iters` iterations, float32 tolerance tol32, float64 1e-12)
     against their plain versions on `inputs` (substep_inputs): float64
@@ -1137,11 +1161,9 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
     and both solve forms through their raw entry points, B's block form),
     failing unless the wrappers' kernels are the faster (with gate_forms
     False, printed only: at a batch of one system the race is one launch's
-    latency). Returns the report entries of inputs["chol"] and "qp"; `tag`
-    prefixes the printed names."""
+    latency). `tag` prefixes the printed names."""
     from smplsim_tpu_torch.ops import _build, linalg, qp
 
-    report = {}
     chol_cases = inputs["chol"]
     A_qp, b_qp, act_qp, f0_qp = inputs["qp"]
     for name, (A, b, d) in chol_cases.items():
@@ -1194,9 +1216,6 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
                 nbytes = 4 * Bn * (n * (n + 1) / 2 + 2 * n * m + (n if dd is not None else 0))
                 flops = Bn * (n ** 3 / 3 + 2 * n * n * m)
                 bms, by = bound_ms(nbytes, flops, dt)
-                report[name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
-                                    library_ms=lib, bound_ms=bms, bound_by=by, route=route,
-                                    previous_ms=prev, forms_ms=forms)
                 print(f"  {tag}chol_solve[{name}] f32: kernel {ms:.4f} ms ({route} form; raw warp "
                       f"form {forms['warp']:.4f}, thread form {forms['thread']:.4f}; column "
                       f"kernel {prev:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
@@ -1253,16 +1272,13 @@ def hold_a_b(tag: str, inputs: dict, iters: int = QP["qp_iters"],
               f"where the plain version meets it ({only_p})")
         if dt != torch.float32:
             continue
-        report["qp"] = time_qp(qp, _build, A, b, a, f0, it, tol, converged_only, gate_forms)
-        r = report["qp"]
+        r = time_qp(qp, _build, A, b, a, f0, it, tol, converged_only, gate_forms)
         print(f"  {tag}newton_qp f32: kernel {r['ms']:.4f} ms (block form {r['previous_ms']:.4f}), "
               f"plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), iterations mean "
               f"{r['iterations_mean']:.2f} max {r['iterations_max']}, max|kernel-plain| "
               f"{r['max_abs_err']:.3e} (per system, relative to max|plain|: "
               f"{r['max_rel_err']:.3e})", flush=True)
-
-    return report
 
 
 def env_run(env_, n_steps, per_auto, counted, action, gen):
@@ -1312,7 +1328,7 @@ def env_run(env_, n_steps, per_auto, counted, action, gen):
     check(fin, "state finite")
     check(st.obs.shape == (B_MAIN, env_.obs_size), f"obs shape {tuple(st.obs.shape)}")
     out.update(state=st, rate=B_MAIN * n_steps / el, overflow=(ov / n_steps).item(),
-               stalled=(stl / n_steps).item(), nactive_max=int(nact), chol_solve=n_a, newton_qp=n_b,
+               stalled=(stl / n_steps).item(), nactive_max=int(nact),
                per_step={"chol_solve": n_a / n_steps, "newton_qp": n_b / n_steps},
                reward_min=float(r_lo), reward_max=float(r_hi))
     return out
@@ -1324,22 +1340,25 @@ def same_bits(a: list, b: list) -> bool:
         for x, y in zip(a, b))
 
 
-def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> dict:
-    """Phases 18 and 19: the PPO trainer (AgentHumanoid with run_cfg), the
-    update card vs CPU in float64 (ucfg), and the CEM planner (ccfg) on
-    HumanoidGetup; every launch count set to 0 just before each counted
-    run and read just after. Returns the launch counts and times."""
-    from smplsim_tpu_torch.agents import AgentHumanoid
-    from smplsim_tpu_torch.control import CEMPlanner
+def trainer_and_planner(model, dev, counted, card: str) -> dict:
+    """Phases 18 and 19: the PPO trainer (AgentHumanoid with RunConfig(
+    num_epochs=2, save_frequency=1)), the update card vs CPU in float64
+    (UPDATE_CFG), and the CEM planner (CEMConfig()) on HumanoidGetup; every
+    launch count set to 0 just before each counted run and read just after.
+    Returns the PPO iteration's and the plan's seconds, which phases 31 and
+    33 print beside their own."""
+    from smplsim_tpu_torch.agents import AgentHumanoid, RunConfig
+    from smplsim_tpu_torch.control import CEMConfig, CEMPlanner
     from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup
-    from smplsim_tpu_torch.learning.ppo import state_tensors
+    from smplsim_tpu_torch.learning.ppo import PPOConfig, state_tensors
     from smplsim_tpu_torch.learning.running_norm import normalize
     from smplsim_tpu_torch.ops import qp
 
     # ------------------------------------------------ 18. the PPO trainer
     print("phase 18: PPO trainer at full width (PPOConfig(), the default QP)", flush=True)
     tmp = tempfile.TemporaryDirectory()
-    run_cfg = dataclasses.replace(run_cfg, output_dir=tmp.name)
+    run_cfg = RunConfig(num_epochs=2, save_frequency=1, output_dir=tmp.name)
+    ucfg, ccfg = PPOConfig(**UPDATE_CFG), CEMConfig()
     pcfg = run_cfg.learning
     cfi = run_cfg.env.control_frequency_inv
     sync = lambda: torch.cuda.synchronize() if dev.type == "cuda" else None
@@ -1404,8 +1423,7 @@ def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> 
     with torch.no_grad():
         mu, _ = agent.state.policy(normalize(agent.state.obs_norm, est.obs, pcfg.obs_clip))
     t_inputs = substep_inputs(agent.model, est, mu.clamp(-1.0, 1.0), agent.env._qp_rows)
-    t_report = hold_a_b("trainer ", t_inputs, qp.NEWTON_ITERS, qp.tol_for(torch.float32))
-    t_report["full_rows"] = t_inputs["full_rows"]
+    hold_a_b("trainer ", t_inputs, qp.NEWTON_ITERS, qp.tol_for(torch.float32))
     tmp.cleanup()
     # the update, card vs CPU in float64, on one numpy-made trajectory
     upd_err = update_card_vs_cpu(ucfg, 0, 1, None, (dev, torch.device("cpu")))
@@ -1452,13 +1470,12 @@ def trainer_and_planner(model, dev, counted, card: str, run_cfg, ucfg, ccfg) -> 
           f"receding_horizon(2): rewards {crews.tolist()}, costs {ccosts.tolist()} finite, "
           f"{rh_s:.3f} s")
 
-    return dict(ppo_l=ppo_l, eval_l=eval_l, cem_l=cem_l, ppo_sec=ppo_sec, plan_s=plan_s,
-                report=t_report)
+    return dict(ppo_sec=ppo_sec, plan_s=plan_s)
 
 
 def time_chol(linalg, A, b, d) -> dict:
     """Kernel A (the wrapper) on (A, b, d) against its plain version:
-    max|kernel - plain| and its relative form, times of kernel, plain
+    max|kernel - plain| relative to max|plain|, times of kernel, plain
     version and the library call (cholesky + cholesky_solve), and the
     bound, in A's dtype."""
     xk = linalg.chol_solve(A, b, d)
@@ -1470,7 +1487,7 @@ def time_chol(linalg, A, b, d) -> dict:
     Bn, n, m = b.shape
     nbytes = A.element_size() * Bn * (n * (n + 1) / 2 + 2 * n * m + (n if d is not None else 0))
     bms, by = bound_ms(nbytes, Bn * (n ** 3 / 3 + 2 * n * n * m), A.dtype)
-    return dict(max_abs_err=(xk - xp).abs().amax().item(), max_rel_err=rel_diff(xk, xp),
+    return dict(max_rel_err=rel_diff(xk, xp),
                 ms=cuda_ms(lambda: linalg.chol_solve(A, b, d), 10),
                 plain_ms=cuda_ms(lambda: linalg.chol_solve_plain(A, b, d), 2),
                 library_ms=cuda_ms(library, 5), bound_ms=bms, bound_by=by,
@@ -1503,8 +1520,7 @@ def held_inputs(tag: str, inputs: dict, state) -> dict:
           flush=True)
     sub = lambda t: None if t is None else t[ok].contiguous()
     return dict(chol={k: tuple(sub(t) for t in v) for k, v in inputs["chol"].items()},
-                qp=tuple(sub(t) for t in inputs["qp"]), full_rows=inputs["full_rows"],
-                held=int(ok.sum()))
+                qp=tuple(sub(t) for t in inputs["qp"]))
 
 
 def advanced(env, action, gen, steps: int = 3):
@@ -1515,7 +1531,7 @@ def advanced(env, action, gen, steps: int = 3):
     return st
 
 
-def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
+def body_paths(dev, counted, card: str, rate: float, gen) -> None:
     """Phases 20 and 21: the β-heterogeneous batch and the SMPLX humanoid,
     built from the synthetic bodies of tests/_torch_synthetic_body.py (the
     licensed SMPL files are not in the repository), as bench.py's
@@ -1525,7 +1541,6 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     from smplsim_tpu_torch.ops import linalg
     from smplsim_tpu_torch.physics import constraints, engine, solver
 
-    out = {}
     # ------------------------------------------------------- 20. the β batch
     print("phase 20: a β-heterogeneous HumanoidSpeed batch (64 bodies over 4096 envs)", flush=True)
     bodies = synthetic_models(dev)
@@ -1539,7 +1554,7 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     b_run = env_run(env, BETA_STEPS, (2 * CFI, CFI), counted, act, gen)
     print(f"  {N_BETAS} bodies built in {build_s:.3f} s ({build_s / N_BETAS * 1e3:.1f} ms each, "
           f"host); {BETA_STEPS} control steps x {B_MAIN} envs: {b_run['rate']:.1f} env-steps/s "
-          f"beside the shared model's {speed_rate:.1f} in this call ({b_run['rate'] / speed_rate:.3f}x);"
+          f"beside the shared model's {rate:.1f} in this call ({b_run['rate'] / rate:.3f}x);"
           f" overflow {b_run['overflow']:.5f}, stalled {b_run['stalled']:.5f}, nactive_max "
           f"{b_run['nactive_max']}; on {card}", flush=True)
     # card vs CPU on 8 envs (bodies 0-7) from a reset, half-scale actions
@@ -1565,9 +1580,7 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     # tolerance, as in phase 21: the systems that stop at the iteration cap
     # (a third of the β systems fill all K = 32 rows) part by more than
     # rounding; objective_where_converged shows each one left out is capped
-    out["beta"] = hold_a_b("beta ", b_inputs, converged_only=True)
-    out["beta"].update(full_rows=b_inputs["full_rows"], systems=b_inputs["held"])
-    out.update(b_run=b_run, build_s=build_s)
+    hold_a_b("beta ", b_inputs, converged_only=True)
 
     # -------------------------------------------------- 21. the SMPLX humanoid
     print("phase 21: the SMPLX humanoid (52 bodies, nv = 159)", flush=True)
@@ -1578,7 +1591,7 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     xact = lambda n: torch.rand(n, xmodel.nu, generator=gen, device=dev) * 2.0 - 1.0
     x_run = env_run(xenv, SMPLX_STEPS, (2 * CFI, CFI), counted, xact, gen)
     print(f"  {SMPLX_STEPS} control steps x {B_MAIN} envs: {x_run['rate']:.1f} env-steps/s "
-          f"({x_run['rate'] / speed_rate:.3f}x the 24-body speed path in this call); overflow "
+          f"({x_run['rate'] / rate:.3f}x the 24-body speed path in this call); overflow "
           f"{x_run['overflow']:.5f}, stalled {x_run['stalled']:.5f}, nactive_max "
           f"{x_run['nactive_max']}; on {card}", flush=True)
     x_state = advanced(xenv, xact, gen)
@@ -1588,8 +1601,7 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     # is 1) and many stop at the iteration cap, where the two solvers' float32
     # iterates part by more than rounding; objective_where_converged shows
     # each one left out is capped
-    out["smplx"] = hold_a_b("smplx ", x_inputs, converged_only=True)
-    out["smplx"].update(full_rows=x_inputs["full_rows"], systems=x_inputs["held"])
+    hold_a_b("smplx ", x_inputs, converged_only=True)
 
     # one float64 control step at the package's default QP (K = 64): the
     # stable-PD solve at m = 1 + diag and the smooth + Delassus solve at
@@ -1619,30 +1631,23 @@ def body_paths(dev, counted, card: str, speed_rate: float, gen) -> dict:
     x64_inputs = substep_inputs(x64, dataclasses.replace(s64, pd_cache=c_g, phys=st_g),
                                 0.1 * xact(X64_ENVS).double(), qp_rows=solver.COMPACT_ROWS)
     A65, b65, _ = x64_inputs["chol"]["m=65"]
-    out["smplx_f64_m65"] = time_chol(linalg, A65.contiguous(), b65.contiguous(), None)
-    r = out["smplx_f64_m65"]
+    r = time_chol(linalg, A65.contiguous(), b65.contiguous(), None)
     check(r["max_rel_err"] <= 1e-9, f"chol_solve float64 n=159 m=65 ({r['route']} form, chunks "
                                     f"of {r['chunk']}) vs plain: {r['max_rel_err']:.3e} <= 1e-9")
     print(f"  chol_solve float64 n=159 m=65 on {X64_ENVS} systems: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']})", flush=True)
-    out.update(x_run=x_run, xbuild_s=xbuild_s, x64_launches=x64_l)
-    return out
 
 
 def device_ops(fn) -> tuple[float, float]:
-    """Device busy ms and device ops (kernels, copies, sets) of one fn() call
-    under torch.profiler, after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device busy ms (simbench/trace.py's: the union of the device
+    operations' intervals) and device ops (kernels, copies, sets) of one
+    fn() call recorded by simbench.trace.record, after a warm-up call."""
+    from simbench import trace
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    return sum(us(e) for e in ev) / 1e3, sum(e.count for e in ev)
+    rec = trace.record(fn, 1)
+    return rec["busy_s"] * 1e3, sum(c for _, c in rec["device_ops"].values())
 
 
 def cpu_copy(state):
@@ -1652,7 +1657,7 @@ def cpu_copy(state):
     return map_state(lambda t: t.cpu() if isinstance(t, torch.Tensor) else torch.Generator(), state)
 
 
-def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict:
+def slice7_paths(model, dev, counted, card: str, rate: float, gen) -> None:
     """Phases 22-25: the articulated-body route beside the dense one,
     NvHumanoid through GymVectEnv, DomainRandEnv over HumanoidSpeed and
     HumanoidMove, each counted run with every launch count set to 0 just
@@ -1664,7 +1669,6 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
     from smplsim_tpu_torch.ops import linalg
     from smplsim_tpu_torch.physics import control, dynamics, engine, kinematics, substep
 
-    out, report = {}, {}
     cpu_model = model.to(device="cpu")
     rel = lambda g_, c_: ((g_.cpu() - c_).abs() / (1.0 + c_.abs())).amax().item()
 
@@ -1681,7 +1685,6 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
         d = rel(st_g.qpos, st_c.qpos)
         check(d <= 5e-3, f"{tag} card vs CPU, {st_c.qpos.shape[0]} envs, {steps} control steps: "
                          f"qpos {d:.3e} <= 5e-3")
-        return d
 
     # ------------------------------------------------- 22. the ABA route
     print("phase 22: the articulated-body route (SMPLSIM_ABA=1) beside the dense route", flush=True)
@@ -1698,9 +1701,9 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
               f"env-steps/s, dense route {r_d['rate']:.1f} ({r_a['rate'] / r_d['rate']:.3f}x); "
               f"overflow {r_a['overflow']:.5f} / {r_d['overflow']:.5f}, stalled "
               f"{r_a['stalled']:.5f} / {r_d['stalled']:.5f}; launches per control step "
-              f"{r_a['per_step']} / {r_d['per_step']}; phase 3 {speed_rate:.1f}; on {card}",
+              f"{r_a['per_step']} / {r_d['per_step']}; phase 3 {rate:.1f}; on {card}",
               flush=True)
-        out["aba_cmp"] = card_vs_cpu(
+        card_vs_cpu(
             "ABA route", model, *(lambda f: (f.phys, f.pd_cache))(env.reset(16, gen)), 2,
             lambda: 0.5 * (torch.rand(16, model.nu, generator=gen, device=dev) * 2.0 - 1.0))
         # the elimination against Kernel A on a real substep's systems
@@ -1721,7 +1724,6 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
         linalg.chol_solve_plain(M.double(), rhs1.double(), d1.double())).flatten(1).all(1)
     print(f"  systems held: {int(held.sum())} of {B_MAIN} (|qvel| <= {WILD_QVEL:g}, M + diag SPD "
           "in float64)", flush=True)
-    report["aba"] = {}
     for name, rhs, d in (("m=1,diag", rhs1, d1), ("m=33", rhs33, None)):
         H = M if d is None else M + torch.diag_embed(d)
         xe, xa = solve(rhs, d), linalg.chol_solve(M, rhs, d)
@@ -1733,13 +1735,9 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
         ms_e = cuda_ms(lambda: solve(rhs, d), 10)
         ms_a = cuda_ms(lambda: linalg.chol_solve(M, rhs, d), 20)
         busy_e, ops_e = device_ops(lambda: solve(rhs, d))
-        report["aba"][name] = dict(residual=res_e, residual_A=res_a, ms=ms_e, A_ms=ms_a,
-                                   device_busy_ms=busy_e, device_ops=ops_e,
-                                   residual_bound=ABA_RESIDUAL)
         print(f"  ABA mass_solve[{name}]: {ms_e:.4f} ms by events ({busy_e:.4f} ms device busy, "
               f"{ops_e:.0f} device ops per solve) beside Kernel A's {ms_a:.4f} ms (one launch)",
               flush=True)
-    out.update(aba=r_a, aba_dense=r_d)
 
     # ---------------------------------- 23. NvHumanoid through GymVectEnv
     print("phase 23: NvHumanoid (obs v2, freeze_hand, impulses, 2 projectiles) through "
@@ -1775,9 +1773,6 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
           f"and flags copied out): {nrate:.1f} env-steps/s; termination share "
           f"{term / STEPS:.5f}, steps with final_observation {finals}, overflow {ov / STEPS:.5f}, "
           f"stalled {stl / STEPS:.5f}; on {card}", flush=True)
-    out["nv"] = dict(rate=nrate, chol_solve=n_l[0], newton_qp=n_l[3], termination=term / STEPS,
-                     overflow=ov / STEPS, stalled=stl / STEPS,
-                     per_step={"chol_solve": n_l[0] / STEPS, "newton_qp": n_l[3] / STEPS})
     # card vs CPU: 16 envs, 2 control steps, the impulse and throw draws
     # made on the card and fed to both
     env_g, env_c = NvHumanoid(model, ncfg, **QP), NvHumanoid(cpu_model, ncfg, **QP)
@@ -1794,7 +1789,6 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
     d = max(rel(s_g.phys.qpos, s_c.phys.qpos), rel(s_g.proj[0], s_c.proj[0]))
     check(d <= 5e-3, f"NvHumanoid card vs CPU, 16 envs, 2 control steps with impulses and "
                      f"throws: qpos and sphere positions {d:.3e} <= 5e-3")
-    out["nv"]["cmp"] = d
 
     # ------------------------------------ 24. DomainRandEnv over HumanoidSpeed
     print("phase 24: DomainRandEnv over HumanoidSpeed (every field, both noises)", flush=True)
@@ -1832,12 +1826,9 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
         *ds.inner.pd_cache)), "DomainRandEnv state finite")
     drate = B_MAIN * STEPS / el
     print(f"  {STEPS} step_autoresets x {B_MAIN} envs: {drate:.1f} env-steps/s "
-          f"({drate / speed_rate:.3f}x phase 3's); realizations redrawn {int(redraws)} times "
+          f"({drate / rate:.3f}x phase 3's); realizations redrawn {int(redraws)} times "
           f"(frequency 1: every reset); overflow {(ov / STEPS).item():.5f}, stalled "
           f"{(stl / STEPS).item():.5f}; on {card}", flush=True)
-    out["dr"] = dict(rate=drate, redraws=int(redraws), chol_solve=n_l[0], newton_qp=n_l[3],
-                     overflow=(ov / STEPS).item(), stalled=(stl / STEPS).item(),
-                     per_step={"chol_solve": n_l[0] / STEPS, "newton_qp": n_l[3] / STEPS})
     print("phase 24: kernels A and B against their plain versions (domain-randomized inputs)",
           flush=True)
     ds = denv.reset(B_MAIN, gen)
@@ -1845,10 +1836,9 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
         ds = denv.step_autoreset(ds, action(B_MAIN))
     a_now = action(B_MAIN)
     d_inputs = held_inputs("dr ", substep_inputs(ds.model, ds.inner, a_now), ds.inner)
-    report["dr"] = hold_a_b("dr ", d_inputs, converged_only=True)
-    report["dr"].update(full_rows=d_inputs["full_rows"], systems=d_inputs["held"])
+    hold_a_b("dr ", d_inputs, converged_only=True)
     d16 = denv.reset(16, gen)
-    out["dr"]["cmp"] = card_vs_cpu(
+    card_vs_cpu(
         "DomainRandEnv realization", d16.model, d16.inner.phys, d16.inner.pd_cache, 2,
         lambda: 0.5 * (torch.rand(16, model.nu, generator=gen, device=dev) * 2.0 - 1.0))
 
@@ -1861,11 +1851,8 @@ def slice7_paths(model, dev, counted, card: str, speed_rate: float, gen) -> dict
     check(0.0 <= mv["reward_min"] and mv["reward_max"] <= 1.0,
           f"every reward in [0, 1] ({mv['reward_min']:.4f}-{mv['reward_max']:.4f})")
     print(f"  {STEPS} step_autoresets x {B_MAIN} envs: {mv['rate']:.1f} env-steps/s "
-          f"({mv['rate'] / speed_rate:.3f}x phase 3's at 15 substeps); overflow "
+          f"({mv['rate'] / rate:.3f}x phase 3's at 15 substeps); overflow "
           f"{mv['overflow']:.5f}, stalled {mv['stalled']:.5f}; on {card}", flush=True)
-    out["move"] = mv
-    out["report"] = report
-    return out
 
 
 def rel_gap(ref: torch.Tensor, val: torch.Tensor) -> float:
@@ -1880,7 +1867,7 @@ def quat_gap(ref: torch.Tensor, val: torch.Tensor) -> float:
     return rel_gap(ref, torch.where((ref * val).sum(-1, keepdim=True) < 0, -val, val))
 
 
-def motion_paths(model, dev, counted, card: str) -> dict:
+def motion_paths(model, dev, counted, card: str) -> None:
     """Phases 26-30: the motion library (load and sampling), playback with
     the tracking metrics, 2-D pose fitting and poselib, on the default
     humanoid in float32 at seed 0 (module doc)."""
@@ -1896,7 +1883,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
     from smplsim_tpu_torch.poselib import SkeletonState, SkeletonTree
     from smplsim_tpu_torch import transforms as T
 
-    out = {}
     cpu_model = registry.default_humanoid(torch.float32, device="cpu")
     fk, fk_cpu = HumanoidBatchFK.from_robot_model(model), HumanoidBatchFK.from_robot_model(cpu_model)
 
@@ -1943,8 +1929,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
                       else getattr(lib, k)[:n16]) for k in TABLES)
     check(per <= 1e-6, f"the batched load equals a per-clip load of the first 16 clips on the "
                        f"card: {per:.3e} <= 1e-6 (every table)")
-    out["load"] = dict(clips=N_CLIPS, frames=frames, seconds=load_s, table_bytes=table_bytes,
-                       allocated_bytes=mem1 - mem0, card_vs_cpu=gaps, batched_vs_per_clip=per)
 
     # ------------------------------------------------------- 27. sampling
     print(f"phase 27: get_motion_state and get_motion_state_intervaled at B = {B_MAIN}",
@@ -1952,7 +1936,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
     ids = torch.as_tensor(lib.sample_motion_ids(np.random.default_rng(1), B_MAIN), device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     times = lib.sample_time(g, ids)
-    rates = {}
     for fn in ("get_motion_state", "get_motion_state_intervaled"):
         call = getattr(lib, fn)
         for _ in range(3):
@@ -1963,7 +1946,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
             st = call(ids, times)
         torch.cuda.synchronize()
         el = (time.time() - t0) / SAMPLE_CALLS
-        rates[fn] = dict(seconds_per_call=el, states_per_s=B_MAIN / el)
         check(all(bool(torch.isfinite(v.float()).all()) for v in st.values()),
               f"{fn}: {el * 1e3:.3f} ms per call, {B_MAIN / el:.1f} states/s on {card}; finite")
         ids16 = ids % n16
@@ -1972,8 +1954,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
         gap = max((quat_gap if k in ("root_rot", "rb_rot", "xquat") else rel_gap)(s_cpu[k], s_card[k])
                   for k in s_cpu)
         check(gap <= 5e-3, f"{fn} card vs CPU on clips 0-15: {gap:.3e} <= 5e-3")
-        rates[fn]["card_vs_cpu"] = gap
-    out["sampling"] = rates
 
     # ------------------------------------------------ 28. playback, metrics
     print(f"phase 28: HumanoidPlayback at {B_MAIN} envs, {PLAY_STEPS} step_autoresets, and "
@@ -2022,10 +2002,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
     check(f_mean <= lim["mean"] and f_max <= lim["max"],
           f"clips 0-15: mpjpe_g mean {f_mean:.4e} <= {lim['mean']:.4e} and max {f_max:.4e} <= "
           f"{lim['max']:.4e} mm (the JAX package's float64 gap + {FK_GAP_SLACK_MM} mm)")
-    out["playback"] = dict(rate=play_rate, launches=launches, envs_compared=int(keep.sum()),
-                           mpjpe_g_mean=mg.mean().item(), mpjpe_g_max=mg.max().item(),
-                           first16_mean=f_mean, first16_max=f_max,
-                           per_step={n: 0.0 for n in ("chol_solve", "newton_qp")})
 
     # ----------------------------------------------------- 29. pose fitting
     print(f"phase 29: PoseFitter on a {FIT_FRAMES}-frame clip (tests/test_fitting.py's camera)",
@@ -2067,8 +2043,6 @@ def motion_paths(model, dev, counted, card: str) -> dict:
         f64.append(fitter.fit(torch.as_tensor(init, device=d), steps=5, lr=0.01))
     gap = max(rel_gap(f64[1][i], f64[0][i]) for i in range(2))
     check(gap <= 1e-9, f"float64 fit(steps=5): losses and vector card vs CPU {gap:.3e} <= 1e-9")
-    out["fit"] = dict(seconds_100=fit100, ratio_100=ratio, seconds_default=fit_def,
-                      card_vs_cpu_f64=gap)
 
     # ----------------------------------------------------------- 30. poselib
     print("phase 30: poselib on the first 16 clips of phase 26", flush=True)
@@ -2087,12 +2061,9 @@ def motion_paths(model, dev, counted, card: str) -> dict:
     # FK, then poselib's local conversion and FK), printed
     print(f"  from the library's global rotations (global -> local -> FK): {g_glob:.3e} m",
           flush=True)
-    out["poselib"] = dict(frames=rows, from_local=g_loc, from_global=g_glob)
-    return out
 
 
-def tf32_readings(model, cpu_model, env, gen, action, engine, substep, constraints,
-                  control) -> dict:
+def tf32_readings(model, cpu_model, env, gen, action) -> dict:
     """Phase 4b: phase 4's card-vs-CPU check (16 envs from a fresh reset, 2
     control steps at half-scale actions) with the process at TF32, through
     engine.control_step (pinned to full float32) and through the inner
@@ -2100,7 +2071,9 @@ def tf32_readings(model, cpu_model, env, gen, action, engine, substep, constrain
     pinned run again at "highest" beside them, and pinned once more with
     TF32 set through torch.backends.cuda.matmul.fp32_precision instead of
     the legacy call. Restores "highest"."""
-    n = 16
+    from smplsim_tpu_torch.physics import constraints, control, engine, substep
+
+    n = CMP_ENVS
     fresh = env.reset(n, gen)
     acts = [0.5 * action(n) for _ in range(2)]
     K = min(QP["qp_rows"], constraints.NEFC)
@@ -2306,12 +2279,13 @@ def rank_phases(rank: int, world: int, store: str, cfi: int, ucfg) -> dict:
         dist.destroy_process_group()
 
 
-def parallel_paths(dev, counted, card: str, ucfg, ppo_sec: dict, plan_s: float) -> dict:
+def parallel_paths(dev, counted, card: str, ppo_sec: dict, plan_s: float) -> None:
     """Phases 31-33: the sharded PPO step at a world of 1 over NCCL in this
     process, bit for bit against rollout + update from the derived state;
     then two ranks in spawned processes on the one card over gloo (NCCL
-    takes no two ranks on one device): rank_phases. Returns the launch
-    counts and times."""
+    takes no two ranks on one device): rank_phases, with phase 18's
+    float64 update (UPDATE_CFG). ppo_sec and plan_s, phase 18's iteration
+    and phase 19's plan, are printed beside these."""
     from smplsim_tpu_torch.control import CEMConfig
     from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
     from smplsim_tpu_torch.learning.ppo import PPO, PPOConfig, state_tensors
@@ -2382,7 +2356,8 @@ def parallel_paths(dev, counted, card: str, ucfg, ppo_sec: dict, plan_s: float) 
     print(f"phases 32-33: {SHARDED_WORLD} ranks in spawned processes on one card over gloo",
           flush=True)
     t0 = time.time()
-    ranks = pm.run_ranks(rank_phases, SHARDED_WORLD, (cfi, ucfg), timeout=RANKS_TIMEOUT)
+    ranks = pm.run_ranks(rank_phases, SHARDED_WORLD, (cfi, PPOConfig(**UPDATE_CFG)),
+                         timeout=RANKS_TIMEOUT)
     print(f"  the world ran {time.time() - t0:.1f} s (start-up included)", flush=True)
     print(f"phase 32: sharded PPO step, {SHARDED_WORLD} ranks x "
           f"{pcfg.num_envs // SHARDED_WORLD} envs over gloo (PPOConfig())", flush=True)
@@ -2433,14 +2408,6 @@ def parallel_paths(dev, counted, card: str, ucfg, ppo_sec: dict, plan_s: float) 
     plan2_s = max(p["seconds"] for p in plans)
     print(f"  {plan2_s:.3f} s per sharded plan (ranks {[p['seconds'] for p in plans]}) beside "
           f"phase 19's {plan_s:.3f} s at {ccfg.num_samples} samples on {card}", flush=True)
-    return dict(nccl_l=nccl_l, nccl_s=nccl_s, phase18_s=phase18_s, unsharded_s=ref_s,
-                nccl_halves=nccl_halves, nccl_allreduce_ms=nccl_ms,
-                gloo_halves=[[{k: i[k] for k in ("rollout", "update")} for i in r["iterations"]]
-                             for r in ranks],
-                gloo_allreduce_ms=gms,
-                gloo_l=[[i["launches"] for i in r["iterations"]] for r in ranks],
-                gloo_s=[[i["seconds"] for i in r["iterations"]] for r in ranks],
-                plan_l=[p["launches"] for p in plans], plan_s=plan2_s, update_gap=max(gaps))
 
 
 def gate_tools():
@@ -2453,14 +2420,13 @@ def gate_tools():
     return cal, gate
 
 
-def product_gate_paths(dev, counted) -> dict:
+def product_gate_paths(dev, counted) -> None:
     """Phase 34: the product gate of tools/gate_f32_torch.py on the card,
     each run counted: the float64 speed loop at the default QP against the
     MuJoCo golden, the float32 loops at the product QP on the dense and the
     articulated-body route against the JAX package's float32 trajectory,
     getup's solver health; then Kernels A and B against their plain versions
-    on the float64 loop's own systems at B = 1. Returns the records, the
-    launch counts per run and the hold reports."""
+    on the float64 loop's own systems at B = 1."""
     from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import qp
 
@@ -2480,9 +2446,9 @@ def product_gate_paths(dev, counted) -> dict:
         check(got == want, f"{label}: launches {dict(zip(names, got))} = chol_solve {a_b[0]}, "
                            f"newton_qp {a_b[1]}, no C, D or E")
         print(f"  {label}: {sec:.1f} s", flush=True)
-        return rec, dict(zip(names, got)), sec
+        return rec
 
-    out = {"records": {}, "launches": {}, "seconds": {}}
+    records = {}
     print(f"phase 34: the product gate (tools/gate_f32_torch.py) on {GATE_STEPS} float64 and "
           f"float32 control steps, {GATE_ABA_STEPS} on the ABA route, getup {GATE_GETUP_ENVS} "
           f"envs x {GATE_GETUP_STEPS}", flush=True)
@@ -2503,60 +2469,46 @@ def product_gate_paths(dev, counted) -> dict:
             ("getup", lambda: gate.getup(dev, GATE_GETUP_ENVS, GATE_GETUP_STEPS),
              (6 * CFI + 8 * CFI * GATE_GETUP_STEPS, 3 * CFI + 4 * CFI * GATE_GETUP_STEPS)))
     for label, fn, a_b in runs:
-        rec, launches, sec = counted_run(label, fn, a_b)
-        out["records"][label], out["launches"][label], out["seconds"][label] = rec, launches, sec
+        rec = records[label] = counted_run(label, fn, a_b)
         for k, v in rec.items():
             if k.startswith("vs_"):
                 print(f"  {label} {k}: {json.dumps(v)}", flush=True)
-    r64 = out["records"]["speed_f64"]
+    r64 = records["speed_f64"]
     err = r64["vs_f64_golden"]["max_err_150"]
     check(r64["pass"], f"float64 speed loop at the default QP against the MuJoCo golden over "
                        f"{GATE_STEPS} control steps: {err:.3e} <= 1e-9 (the JAX float64 "
                        f"trajectory: {r64['vs_jax_f64']['max_err_150']:.3e})")
     for label in ("speed_f32_dense", "speed_f32_aba"):
-        r = out["records"][label]
+        r = records[label]
         check(r["pass"], f"{label}: against the JAX float32 trajectory over steps 0-"
                          f"{min(r['steps'] - 1, gate.F32_JAX_LAST)}: "
                          f"{r['vs_jax_f32_max_err_0_39']:.3e} <= 5e-3 (over "
                          f"{r['steps']}: {r['vs_jax_f32']['max_err_150']:.3e}; golden's 1e-2 first "
                          f"crossed at {r['vs_f64_golden']['first_step_over_1e-2']}, the 45-step "
                          f"envelope {'met' if r['envelope_pass'] else 'not met'}, recorded)")
-    g = out["records"]["getup"]
+    g = records["getup"]
     check(g["pass"], f"getup {GATE_GETUP_ENVS} envs x {GATE_GETUP_STEPS}: stalled_frac "
                      f"{g['stalled_frac']:.4f} <= 0.05 (overflow {g['overflow_frac']:.4f}, "
                      f"nactive mean {g['nactive_mean']:.2f} max {g['nactive_max']})")
     # A and B on the float64 loop's own systems, one env
     model = registry.default_humanoid(torch.float64, dev)
-    out["hold"] = {}
     for t in GATE_HOLD_STEPS:
         state, action = held[t]
         inputs = substep_inputs(model, state, action, qp_rows=cal.DEFAULT_QP["qp_rows"])
-        out["hold"][t] = hold_a_b(f"gate f64 step {t} ", inputs, qp.NEWTON_ITERS,
-                                  qp.tol_for(torch.float32), gate_forms=False)
-    return out
+        hold_a_b(f"gate f64 step {t} ", inputs, qp.NEWTON_ITERS, qp.tol_for(torch.float32),
+                 gate_forms=False)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from smplsim_tpu_torch.agents import RunConfig
-    from smplsim_tpu_torch.control import CEMConfig, ILQRConfig, ilqr_plan, jacobians
-    from smplsim_tpu_torch.learning.ppo import PPOConfig
-    from smplsim_tpu_torch.envs import (GetupConfig, HumanoidGetup, HumanoidReach,
-                                        HumanoidSpeed, ReachConfig, SpeedConfig)
-    from smplsim_tpu_torch.envs import obs as obs_mod
+def environment(dev, card) -> dict:
+    """Phase 1: the software, TF32 off, the kernels built and their resources;
+    then the main path's model (and its CPU copy), env, generator, action
+    draw and launch-counted kernels, which the later phases take."""
+    from smplsim_tpu_torch.envs import HumanoidSpeed
     from smplsim_tpu_torch.models import registry
     from smplsim_tpu_torch.ops import _build, collision, linalg, qp
-    from smplsim_tpu_torch.physics import (constraints, control, dynamics, engine,
-                                           kinematics, solver, substep)
 
-    # ------------------------------------------------------------ 1. environment
-    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"card: {card}; device count {torch.cuda.device_count()}")
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
@@ -2590,22 +2542,30 @@ def main() -> None:
     env = HumanoidSpeed(model, **QP)
     gen = torch.Generator(device=dev).manual_seed(0)
     action = lambda n: torch.rand(n, model.nu, generator=gen, device=dev) * 2.0 - 1.0
+    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp,
+               linalg.cholesky)
+    return dict(model=model, cpu_model=registry.default_humanoid(torch.float32, device="cpu"),
+                env=env, gen=gen, action=action, counted=counted)
 
-    # --------------------------------------- 2. kernels vs plain, real inputs
+
+def kernels_on_main_inputs(model, env, gen, action, dev) -> None:
+    """Phase 2: Kernel F, then Kernels A and B, against their plain versions
+    on a real substep of B_MAIN HumanoidSpeed envs after 3 control steps."""
     print("phase 2: kernels against their plain versions", flush=True)
     state = env.reset(B_MAIN, gen)
     for _ in range(3):
         state = env.step_autoreset(state, action(B_MAIN))
-    K = min(QP["qp_rows"], constraints.NEFC)
     print("phase 2: Kernel F against its plain version", flush=True)
-    f_report = kernel_f_paths(model, state, dev)
-    report = hold_a_b("", substep_inputs(model, state, action(B_MAIN)))
-    report.update(f_report)
+    kernel_f_paths(model, state, dev)
+    hold_a_b("", substep_inputs(model, state, action(B_MAIN)))
 
-    # ------------------------------------------------------------ 3. main path
+
+def main_path(model, env, gen, action, counted, card) -> dict:
+    """Phase 3: 16 counted control steps of B_MAIN HumanoidSpeed envs.
+    Returns the rate, which later phases print beside their own."""
+    from smplsim_tpu_torch.ops import collision
+
     print("phase 3: main path", flush=True)
-    counted = (linalg.chol_solve, linalg.cho_factor_solve, linalg.solve_lower, qp.newton_qp,
-               linalg.cholesky)
     for fn in counted:
         fn.launches = 0
     collision.self_contacts.launches = 0
@@ -2637,15 +2597,20 @@ def main() -> None:
           f"{PREVIOUS_HEALTH['overflow']:.5f}), stalled fraction {(stalled / STEPS).item():.5f} "
           f"({PREVIOUS_HEALTH['stalled']:.5f}), done at the last step "
           f"{state.done.float().mean().item():.4f}", flush=True)
+    return dict(rate=rate)
 
-    # ------------------------------------------------------- 4. card vs CPU
+
+def speed_card_vs_cpu(model, cpu_model, env, gen, action) -> dict:
+    """Phase 4: 2 control steps of 16 envs on the card and on the CPU.
+    Returns the gap, which phase 4b's checks print beside their own."""
+    from smplsim_tpu_torch.physics import engine
+
     print("phase 4: card vs CPU", flush=True)
     # from a fresh reset with half-scale random actions: under full-scale
     # random actions the closed loop is chaotic within two control steps
     # (a float32 and a float64 run on the CPU part by 7e-2 in one env of 16),
     # which would measure the chaos, not the kernels
-    n = min(16, B_MAIN)
-    cpu_model = registry.default_humanoid(torch.float32, device="cpu")
+    n = CMP_ENVS
     fresh = env.reset(n, gen)
     st_gpu, cache_gpu = fresh.phys, fresh.pd_cache
     st_cpu = engine.PhysicsState(st_gpu.qpos.cpu(), st_gpu.qvel.cpu())
@@ -2657,15 +2622,17 @@ def main() -> None:
                                                       cache_cpu, **QP)
     diff = ((st_gpu.qpos.cpu() - st_cpu.qpos).abs() / (1.0 + st_cpu.qpos.abs())).amax().item()
     check(diff <= 5e-3, f"qpos card vs CPU after 2 control steps: {diff:.3e} <= 5e-3")
+    return dict(phase4_gap=diff)
 
-    # -------------------------------------- 4b. card vs CPU under TF32 ("high")
+
+def tf32_path(model, cpu_model, env, gen, action, phase4_gap) -> None:
+    """Phase 4b: phase 4 again with the process at TF32 (tf32_readings)."""
     print("phase 4b: card vs CPU with the process at torch.set_float32_matmul_precision('high')",
           flush=True)
-    tf32 = tf32_readings(model, cpu_model, env, gen, action, engine, substep, constraints,
-                         control)
+    tf32 = tf32_readings(model, cpu_model, env, gen, action)
     check(tf32["pinned"] <= 5e-3,
           f"qpos card vs CPU after 2 control steps, the process at TF32 ('high'), through "
-          f"engine.control_step (pinned): {tf32['pinned']:.3e} <= 5e-3 (phase 4: {diff:.3e})")
+          f"engine.control_step (pinned): {tf32['pinned']:.3e} <= 5e-3 (phase 4: {phase4_gap:.3e})")
     check(tf32["pinned_new_api"] <= 5e-3,
           f"the same with TF32 set through torch.backends.cuda.matmul.fp32_precision: "
           f"{tf32['pinned_new_api']:.3e} <= 5e-3")
@@ -2676,7 +2643,15 @@ def main() -> None:
     check(torch.get_float32_matmul_precision() == "highest" and
           not torch.backends.cuda.matmul.allow_tf32, "the process setting restored")
 
-    # ------------------------------ 5. kernels C and D vs plain, torque path
+
+def kernels_c_d(model, gen, action, dev) -> None:
+    """Phase 5: Kernels C and D, and B on the Gram-form systems, against
+    their plain versions on the torque path's inputs."""
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.ops import _build, linalg, qp
+    from smplsim_tpu_torch.physics import constraints, control, dynamics, kinematics, solver
+
+    K = min(QP["qp_rows"], constraints.NEFC)
     print("phase 5: kernels C and D against their plain versions (torque path)", flush=True)
     tenv = HumanoidSpeed(model, SpeedConfig(control_mode="torque"), **QP)
     ps = tenv.config.power_scale
@@ -2746,11 +2721,6 @@ def main() -> None:
             # lower A read, full L written, b read, x written
             nbytes = 4 * Bn * (n * (n + 1) / 2 + n * n + 2 * n * m)
             bms, by = bound_ms(nbytes, Bn * (n ** 3 / 3 + 2 * n * n * m), dt)
-            report["C"] = dict(max_abs_err=max((Lk - Lp)[ok].abs().amax().item(),
-                                               (xk - xp)[ok].abs().amax().item()),
-                               max_rel_err=max(rel_diff(Lk[ok], Lp[ok]), rel_diff(xk[ok], xp[ok])),
-                               max_residual=res, max_factor_residual=fac, ms=ms,
-                               plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
             print(f"  cho_factor_solve[m=1] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
 
@@ -2778,23 +2748,24 @@ def main() -> None:
             Bn, n, m = bd.shape
             nbytes = 4 * Bn * (n * (n + 1) / 2 + 2 * n * m)
             bms, by = bound_ms(nbytes, Bn * n * n * m, dt)
-            report[name] = dict(max_abs_err=(yk - yp)[ok].abs().amax().item(),
-                                max_rel_err=rel_diff(yk[ok], yp[ok]), max_residual=res, ms=ms,
-                                plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
             print(f"  solve_lower[{name}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
 
     # flung envs stall at the iteration cap, where the two summation orders
     # stop at different iterates: held where both meet the tolerance
-    report["qp_torque"] = time_qp(qp, _build, A_g.contiguous(), b_g.contiguous(), rows.actf,
-                                  rows.f0, QP["qp_iters"], QP["qp_tol"], converged_only=True)
-    r = report["qp_torque"]
+    r = time_qp(qp, _build, A_g.contiguous(), b_g.contiguous(), rows.actf, rows.f0,
+                QP["qp_iters"], QP["qp_tol"], converged_only=True)
     print(f"  newton_qp f32 (torque path, Gram form): kernel {r['ms']:.4f} ms (block form "
           f"{r['previous_ms']:.4f}), plain "
           f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, iterations mean "
           f"{r['iterations_mean']:.2f} max {r['iterations_max']}", flush=True)
 
-    # --------------------------------------------------------- 6. torque path
+
+def torque_path(model, gen, action, counted, card, rate) -> None:
+    """Phase 6: 16 counted control steps of B_MAIN envs in torque control."""
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+
+    tenv = HumanoidSpeed(model, SpeedConfig(control_mode="torque"), **QP)
     print("phase 6: torque path", flush=True)
     for fn in counted:
         fn.launches = 0
@@ -2825,7 +2796,14 @@ def main() -> None:
           f"{(stalled_t / STEPS).item():.5f}, done at the last step "
           f"{tstate.done.float().mean().item():.4f}", flush=True)
 
-    # --------------------------------------------- 7. card vs CPU, torque path
+
+def torque_card_vs_cpu(model, cpu_model, gen, action) -> None:
+    """Phase 7: card vs CPU on the torque path (TORQUE_CMP)."""
+    from smplsim_tpu_torch.envs import HumanoidSpeed, SpeedConfig
+    from smplsim_tpu_torch.physics import engine
+
+    tenv = HumanoidSpeed(model, SpeedConfig(control_mode="torque"), **QP)
+    ps, n = tenv.config.power_scale, CMP_ENVS
     print("phase 7: card vs CPU on the torque path", flush=True)
     for scale, cfi, n_steps in TORQUE_CMP:
         fresh = tenv.reset(n, gen)
@@ -2841,8 +2819,13 @@ def main() -> None:
             check(diff <= 5e-3, f"qpos card vs CPU, actions at {scale} of full scale, after "
                                 f"{k + 1} x {cfi} substeps: {diff:.3e} <= 5e-3")
 
-    # ---------------- trajectory points of phases 8-10: one env from a reset
-    # state, 3 control steps at 10% of full-scale actions
+
+def trajectory_points(model, env, gen, action) -> dict:
+    """The inputs of phases 8-10: the uhc_pd control step of CFI substeps at
+    the bench QP on a stacked (qpos, qvel) batch (dyn), and N_POINTS points
+    of one env from a reset state under 10% of full-scale actions."""
+    from smplsim_tpu_torch.physics import engine
+
     nq = model.nq
 
     def dyn(x, u):
@@ -2856,9 +2839,17 @@ def main() -> None:
     for t in range(N_POINTS - 1):
         x_pts.append(dyn(x_pts[-1], u_pts[t:t + 1]))
     x_pts = torch.cat(x_pts)
-    reps = model.nq + model.nv + model.nu
+    return dict(dyn=dyn, x_pts=x_pts, u_pts=u_pts)
 
-    # ------------------------------------ 8. Kernel E vs plain, QP derivative
+
+def kernel_e_on_qp_derivative(model, x_pts, u_pts, dev) -> None:
+    """Phase 8: Kernel E, and D at m = n = 75, against their plain versions
+    on the QP derivative's systems at the trajectory points."""
+    from smplsim_tpu_torch.ops import _build, linalg, qp
+    from smplsim_tpu_torch.physics import constraints, control, dynamics, engine, kinematics, solver
+
+    nq, K = model.nq, min(QP["qp_rows"], constraints.NEFC)
+    reps = model.nq + model.nv + model.nu
     print("phase 8: kernel E cholesky against its plain version (QP derivative)", flush=True)
     st8 = engine.PhysicsState(x_pts[:, :nq].contiguous(), x_pts[:, nq:].contiguous())
     M8, C8 = engine.pd_cache(model, st8)
@@ -2915,11 +2906,6 @@ def main() -> None:
                                  "this call")
         # lower H read, full L written
         bms, by = bound_ms(4 * Bn * (n * (n + 1) / 2 + n * n), Bn * n ** 3 / 3, dt)
-        report["E"] = dict(max_abs_err=(Lk - Lp).abs().amax().item(),
-                           max_rel_err=rel_diff(Lk, Lp), max_factor_residual=fac, ms=ms,
-                           plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
-                           form=form, previous_ms=prev, device_ms=dev_ms,
-                           previous_device_ms=prev_dev)
         print(f"  cholesky[K={n}] f32: kernel {ms:.4f} ms ({form} form; device time alone "
               f"{dev_ms:.4f}), column kernel {prev:.4f} ms (device {prev_dev:.4f}), plain "
               f"{plain:.4f} ms, library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
@@ -2943,13 +2929,18 @@ def main() -> None:
         lib = cuda_ms(lambda: torch.linalg.solve_triangular(Ld, bd, upper=False), 10)
         Bn, n, m = bd.shape
         bms, by = bound_ms(4 * Bn * (n * (n + 1) / 2 + 2 * n * m), Bn * n * n * m, dt)
-        report["m=75"] = dict(max_abs_err=(yk - yp).abs().amax().item(),
-                              max_rel_err=rel_diff(yk, yp), max_residual=res, ms=ms,
-                              plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
         print(f"  solve_lower[m=75, B={Bn}] f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"library {lib:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
 
-    # ------------------------------------------- 9. the differentiable path
+
+def differentiable_path(model, dyn, x_pts, u_pts, counted, card) -> None:
+    """Phase 9: one counted Jacobian evaluation at the trajectory points, its
+    cost beside one forward-AD pass, and float64 Jacobians card vs CPU."""
+    from smplsim_tpu_torch.control import jacobians
+    from smplsim_tpu_torch.models import registry
+    from smplsim_tpu_torch.physics import constraints, control, engine, substep
+
+    nq, reps = model.nq, model.nq + model.nv + model.nu
     print("phase 9: differentiable path (one Jacobian evaluation)", flush=True)
     for fn in counted:
         fn.launches = 0
@@ -3020,7 +3011,12 @@ def main() -> None:
         check(diff <= 1e-6,
               f"{name} card vs CPU in float64 ({CMP_CFI} substeps): {diff:.3e} <= 1e-6")
 
-    # ------------------------------------------------------------ 10. iLQR
+
+def ilqr(model, dyn, x_pts, dev, card) -> None:
+    """Phase 10: ilqr_plan from the first trajectory point."""
+    from smplsim_tpu_torch.control import ILQRConfig, ilqr_plan
+
+    nq = model.nq
     print("phase 10: ilqr_plan on the card", flush=True)
     cost = lambda x, u, t: (x[:, nq] - 1.0) ** 2 + 1e-3 * (u * u).sum(1)
     term = lambda x: 5.0 * (x[:, nq] - 1.0) ** 2
@@ -3045,19 +3041,12 @@ def main() -> None:
           f"({s_iter:.3f} s per iteration past the initial rollout of {t_roll:.3f} s) "
           f"on {card}", flush=True)
 
-    # ------------------------------------------------ 11. C and D edge cases
-    print("phase 11: kernels C and D on edge cases", flush=True)
-    edge_cases(linalg, dev)
 
-    # ------------------------------------------------ 12. A and B edge cases
-    print("phase 12: kernels A and B on edge cases", flush=True)
-    edge_cases_ab(linalg, qp, dev)
+def getup_path(model, gen, action, counted, card, rate, dev) -> dict:
+    """Phase 14: HumanoidGetup with the per-reset Fall init, then from a
+    pool of Fall states. Returns the env states, which phase 15 takes."""
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup
 
-    # ------------------------------------------------------ 13. E edge cases
-    print("phase 13: kernel E on edge cases", flush=True)
-    edge_cases_e(linalg, dev)
-
-    # ------------------------------------------------------- 14. getup path
     print("phase 14: getup path (Fall init)", flush=True)
     genv = HumanoidGetup(model, GetupConfig(), **QP)
 
@@ -3089,14 +3078,21 @@ def main() -> None:
     print(f"  Fall pool of {B_MAIN} built in {pool_s:.3f} s; 4 step_autoresets from the pool: "
           f"{p_run['rate']:.1f} env-steps/s (reset {p_run['reset_ms']:.1f} ms), overflow "
           f"{p_run['overflow']:.5f}, stalled {p_run['stalled']:.5f}", flush=True)
+    return dict(gstate=gstate)
 
-    # ---------------------------------- 15. Kernels A and B on getup inputs
+
+def getup_kernels(model, gstate, action) -> None:
+    """Phase 15: Kernels A and B on a real substep of phase 14's states."""
     print("phase 15: kernels A and B against their plain versions (getup inputs)", flush=True)
     g_inputs = substep_inputs(model, gstate, action(B_MAIN))
-    report["getup"] = hold_a_b("getup ", g_inputs)
-    report["getup"]["full_rows"] = g_inputs["full_rows"]
+    hold_a_b("getup ", g_inputs)
 
-    # ------------------------------------------------ 16. reach, obs v2
+
+def reach_path(model, gen, action, counted) -> None:
+    """Phase 16: HumanoidReach with observation v2."""
+    from smplsim_tpu_torch.envs import HumanoidReach, ReachConfig
+    from smplsim_tpu_torch.envs import obs as obs_mod
+
     print("phase 16: reach path with observation v2", flush=True)
     renv = HumanoidReach(model, ReachConfig(self_obs_v=2), **QP)
     check(renv.obs_size == obs_mod.self_obs_size(24, 2, True) + 3,
@@ -3105,7 +3101,14 @@ def main() -> None:
     print(f"  4 step_autoresets x {B_MAIN} envs: {r_run['rate']:.1f} env-steps/s, overflow "
           f"{r_run['overflow']:.5f}, stalled {r_run['stalled']:.5f}", flush=True)
 
-    # ------------------------------------------------ 17. perturbation hooks
+
+def perturbation_hooks(model, cpu_model, gen, action, counted, dev) -> None:
+    """Phase 17: a ball per env and a push on the root, then card vs CPU with
+    both hooks from Fall init states."""
+    from smplsim_tpu_torch.envs import GetupConfig, HumanoidGetup
+    from smplsim_tpu_torch.physics import constraints, engine
+
+    n = CMP_ENVS
     print("phase 17: ext_force and projectiles", flush=True)
     stand = engine.PhysicsState(model.qpos0[None].repeat(B_MAIN, 1),
                                 torch.zeros(B_MAIN, model.nv, device=dev))
@@ -3164,7 +3167,7 @@ def main() -> None:
     # measure the chaos, not the card (an earlier check over 15 substeps
     # read 2.674e-02 here); after 2 of 3 substeps at half-scale actions
     # they part by 2e-5 to 6e-5 (float32 vs float64: 1.2e-5)
-    fst = genv.reset(n, gen).phys
+    fst = HumanoidGetup(model, GetupConfig(), **QP).reset(n, gen).phys
     cache_g = engine.pd_cache(model, fst) + (torch.zeros(n, constraints.NEFC, device=dev),)
     pp = (fst.qpos[:, None, :3] + torch.tensor([0.25, 0.0, 0.0], device=dev)).contiguous()
     pv = torch.tensor([-10.0, 0.0, 0.0], device=dev).repeat(n, 1, 1)
@@ -3191,162 +3194,72 @@ def main() -> None:
     check(met >= 0.75, f"the balls met their humanoids in {met:.3f} >= 0.75 of the envs "
                        "(x-velocity moved by more than 1 m/s)")
 
-    ucfg = PPOConfig(num_envs=64, horizon=8, policy_widths=(64, 64), value_widths=(64, 64))
-    tr = trainer_and_planner(model, dev, counted, card, RunConfig(num_epochs=2, save_frequency=1),
-                             ucfg, CEMConfig())
-    ppo_l, eval_l, cem_l, ppo_sec, plan_s = (tr[k] for k in ("ppo_l", "eval_l", "cem_l",
-                                                              "ppo_sec", "plan_s"))
-    pcfg = RunConfig().learning
-    report["trainer"] = tr["report"]
-    trainer_chol = [k for k in report["trainer"] if k.startswith("m=")]
 
-    bp = body_paths(dev, counted, card, rate, gen)
-    report["beta"], report["smplx"] = bp["beta"], bp["smplx"]
-    s7 = slice7_paths(model, dev, counted, card, rate, gen)
-    report.update(s7["report"])
-    mp = motion_paths(model, dev, counted, card)
-    par = parallel_paths(dev, counted, card, ucfg, ppo_sec, plan_s)
-    pg = product_gate_paths(dev, counted)
+# (label, phase function, names of what it returns for later phases). main()
+# runs them in this order; a phase takes its arguments by name from what the
+# phases before it returned (dev and card come from main itself).
+PHASES = (
+    ("1", environment, ("model", "cpu_model", "env", "gen", "action", "counted")),
+    ("2", kernels_on_main_inputs, ()),
+    ("3", main_path, ("rate",)),
+    ("4", speed_card_vs_cpu, ("phase4_gap",)),
+    ("4b", tf32_path, ()),
+    ("5", kernels_c_d, ()),
+    ("6", torque_path, ()),
+    ("7", torque_card_vs_cpu, ()),
+    ("8-10 inputs", trajectory_points, ("dyn", "x_pts", "u_pts")),
+    ("8", kernel_e_on_qp_derivative, ()),
+    ("9", differentiable_path, ()),
+    ("10", ilqr, ()),
+    ("11", edge_cases, ()),
+    ("12", edge_cases_ab, ()),
+    ("13", edge_cases_e, ()),
+    ("14", getup_path, ("gstate",)),
+    ("15", getup_kernels, ()),
+    ("16", reach_path, ()),
+    ("17", perturbation_hooks, ()),
+    ("18-19", trainer_and_planner, ("ppo_sec", "plan_s")),
+    ("20-21", body_paths, ()),
+    ("22-25", slice7_paths, ()),
+    ("26-30", motion_paths, ()),
+    ("31-33", parallel_paths, ()),
+    ("34", product_gate_paths, ()),
+)
 
-    # ---------------------------------------------------------------- report
-    per_step = lambda c: c / STEPS
-    mean = lambda cases, k: sum(report[c][k] for c in cases) / len(cases)
-    d_names = list(d_cases)
-    runs4 = {"getup": g_run, "getup_pool": p_run, "reach": r_run, "beta": bp["b_run"],
-             "smplx": bp["x_run"], "aba_route": s7["aba"], "aba_dense": s7["aba_dense"],
-             "nv_gym": s7["nv"], "domain_rand": s7["dr"], "move": s7["move"],
-             "playback": mp["playback"]}
-    names = ("chol_solve", "cho_factor_solve", "solve_lower", "newton_qp", "cholesky")
-    ball = dict(zip(names, l_hit))
-    x64 = dict(zip(names, bp["x64_launches"]))
 
-    ppo_c, eval_c, cem_c = (dict(zip(names, x)) for x in (ppo_l, eval_l, cem_l))
-    nccl_c = dict(zip(names, par["nccl_l"]))
-    gloo_c = [[dict(zip(names, it)) for it in rank] for rank in par["gloo_l"]]
-    plan2_c = [dict(zip(names, x)) for x in par["plan_l"]]
-
-    def paths(uhc, torque, jac, name):
-        """Launch counts of kernel `name` on every counted run of the main
-        path: phases 3, 6 and 9, then 14, 16 and 17's projectile run, 18's
-        two PPO iterations and eval rollout, 19's plan, 20's β batch and
-        21's SMPLX runs (its float64 step too), 22's two routes, 23's
-        NvHumanoid, 24's domain-randomized and 25's HumanoidMove runs, 28's
-        playback (no launch), 31's sharded iteration, and 32's iterations
-        and 33's plan on every rank, and 34's four gate runs."""
-        new = sum(r.get(name, 0) for r in runs4.values()) + ball[name] + x64[name]
-        sharded = (nccl_c[name] + sum(it[name] for rank in gloo_c for it in rank)
-                   + sum(c[name] for c in plan2_c))
-        gate = {k: c[name] for k, c in pg["launches"].items()}
-        return dict(
-            launches=uhc + torque + jac + new + ppo_c[name] + eval_c[name] + cem_c[name]
-            + sharded + sum(gate.values()),
-            launches_per_control_step={"uhc_pd": per_step(uhc), "torque": per_step(torque),
-                                       "projectile": ball[name] / 25,
-                                       "eval": eval_c[name] / 8,
-                                       "smplx_float64": x64[name]},
-            launches_per_jacobian=jac,
-            launches_per_step_autoreset={k: r["per_step"].get(name, 0)
-                                         for k, r in runs4.items()},
-            launches_per_ppo_iteration=ppo_c[name] / 2,
-            launches_per_cem_plan=cem_c[name],
-            launches_per_sharded_ppo_iteration_per_rank={
-                "nccl_world_1": nccl_c[name],
-                "gloo_world_2": [[it[name] for it in rank] for rank in gloo_c]},
-            launches_per_sharded_cem_plan_per_rank=[c[name] for c in plan2_c],
-            launches_per_gate_run=gate)
-    kernels = [
-        dict(name="chol_solve", route="cuda", source="smplsim_tpu_torch/ops/csrc/chol_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:334",
-             **paths(n_chol, t_chol, j_chol, "chol_solve"),
-             # the main path calls it once at each shape per substep: the
-             # numbers are the mean of one launch of each
-             **{k: mean(("m=1,diag", "m=33"), k)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-             **{k: max(report["m=1,diag"][k], report["m=33"][k])
-                for k in ("max_abs_err", "max_rel_err")},
-             bound_by=report["m=33"]["bound_by"],
-             shapes={**{k: report[k] for k in ("m=1,diag", "m=33")},
-                     **{f"getup {k}": report["getup"][k] for k in ("m=1,diag", "m=33")},
-                     **{f"trainer {k}": report["trainer"][k] for k in trainer_chol},
-                     **{f"{p} {k}": report[p][k] for p in ("beta", "smplx", "dr")
-                        for k in ("m=1,diag", "m=33")},
-                     "smplx float64 m=65": bp["smplx_f64_m65"],
-                     **{f"gate float64 B=1 step {t} {k}": pg["hold"][t][k]
-                        for t in GATE_HOLD_STEPS for k in ("m=1,diag", "m=65")}},
-             aba_elimination=report["aba"]),
-        dict(name="newton_qp", route="cuda", source="smplsim_tpu_torch/ops/csrc/newton_qp.cu",
-             replaces="smplsim_tpu/ops/qp_kernel.py:256", **paths(n_qp, t_qp, j_qp, "newton_qp"),
-             **report["qp"], shapes={"uhc_pd": report["qp"], "torque": report["qp_torque"],
-                                     "getup": {**report["getup"]["qp"],
-                                               "full_rows": report["getup"]["full_rows"]},
-                                     "trainer": {**report["trainer"]["qp"],
-                                                 "full_rows": report["trainer"]["full_rows"]},
-                                     **{p: {**report[p]["qp"], "full_rows": report[p]["full_rows"]}
-                                        for p in ("beta", "smplx", "dr")},
-                                     **{f"gate float64 B=1 step {t}": pg["hold"][t]["qp"]
-                                        for t in GATE_HOLD_STEPS}}),
-        dict(name="cho_factor_solve", route="cuda",
-             source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:104",
-             **paths(n_cfs, t_cfs, j_cfs, "cho_factor_solve"),
-             **report["C"]),
-        dict(name="solve_lower", route="cuda", source="smplsim_tpu_torch/ops/csrc/solve_lower.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:423",
-             **paths(n_sl, t_sl, j_sl, "solve_lower"),
-             # the torque path launches it once at each shape per substep:
-             # the numbers are the mean of one launch of each
-             **{k: mean(d_names, k) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-             **{k: max(report[c][k] for c in d_names)
-                for k in ("max_abs_err", "max_rel_err", "max_residual")},
-             bound_by=report[d_names[0]]["bound_by"],
-             shapes={k: report[k] for k in d_names + ["m=75"]}),
-        dict(name="cholesky", route="cuda",
-             source="smplsim_tpu_torch/ops/csrc/cho_factor_solve.cu",
-             replaces="smplsim_tpu/ops/linalg_kernels.py:410", **paths(n_e, t_e, j_e, "cholesky"),
-             **report["E"]),
-        dict(name="self_contacts", route="cuda",
-             source="smplsim_tpu_torch/ops/csrc/self_contacts.cu",
-             replaces="none (physics/collision_pairs.py::self_contacts_plain)",
-             launches_per_control_step=CFI,
-             **{k: report["F"][str(model.dtype).replace("torch.", "")][k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-             shapes={k: report[k] for k in ("F", "F wide", "F B=1600", "F beta", "F smplx",
-                                            "F smplx wide")}),
-    ]
-    print(f"jacobian: {N_POINTS * reps} systems in {t_jac:.3f} s; ilqr: {s_iter:.3f} s per "
-          f"iteration; env-steps/s: speed {rate:.1f}, getup {g_run['rate']:.1f} (pool "
-          f"{p_run['rate']:.1f}), reach {r_run['rate']:.1f}; PPO iteration (epoch 2): rollout "
-          f"{ppo_sec['rollout']:.3f} s + update {ppo_sec['update']:.3f} s, "
-          f"{pcfg.num_envs * pcfg.horizon / (ppo_sec['rollout'] + ppo_sec['update']):.1f} "
-          f"training env-steps/s; CEM: {plan_s:.3f} s per plan; β batch "
-          f"{bp['b_run']['rate']:.1f}, SMPLX {bp['x_run']['rate']:.1f} env-steps/s; ABA route "
-          f"{s7['aba']['rate']:.1f} beside dense {s7['aba_dense']['rate']:.1f}, NvHumanoid "
-          f"{s7['nv']['rate']:.1f}, DomainRandEnv {s7['dr']['rate']:.1f}, HumanoidMove "
-          f"{s7['move']['rate']:.1f} env-steps/s; motion library: {mp['load']['frames']} frames "
-          f"loaded in {mp['load']['seconds']:.3f} s ({mp['load']['table_bytes']} bytes of tables), "
-          f"{mp['sampling']['get_motion_state']['states_per_s']:.1f} states/s blended, "
-          f"{mp['sampling']['get_motion_state_intervaled']['states_per_s']:.1f} nearest; "
-          f"playback {mp['playback']['rate']:.1f} env-steps/s, physics FK vs library mpjpe_g "
-          f"mean {mp['playback']['mpjpe_g_mean']:.4e} max {mp['playback']['mpjpe_g_max']:.4e} mm; "
-          f"fit {mp['fit']['seconds_100']:.3f} s (100 steps, ratio {mp['fit']['ratio_100']:.4f}), "
-          f"{mp['fit']['seconds_default']:.3f} s (200); TF32 card vs CPU pinned "
-          f"{tf32['pinned']:.3e}, unpinned {tf32['unpinned']:.3e}; sharded PPO iteration: "
-          f"NCCL world of 1 {par['nccl_s']:.3f} s (phase 18 {par['phase18_s']:.3f} s), gloo 2 "
-          f"ranks {[max(s) for s in zip(*par['gloo_s'])]} s; sharded CEM plan 2 x "
-          f"{CEM_RANK_SAMPLES} samples {par['plan_s']:.3f} s", flush=True)
-    print(f"product gate: " + "; ".join(f"{k} {v:.1f} s" for k, v in pg["seconds"].items()),
-          flush=True)
-    print(f"total {time.time() - t_start:.1f} s", flush=True)
-    sharded = {k: par[k] for k in ("nccl_s", "phase18_s", "unsharded_s", "nccl_halves",
-                                   "nccl_allreduce_ms", "gloo_s", "gloo_halves",
-                                   "gloo_allreduce_ms", "plan_s", "update_gap")}
-    gate = {k: pg[k] for k in ("records", "launches", "seconds")}
-    print(json.dumps({"kernels": kernels, "card": card, "motion": mp, "tf32": tf32,
-                      "sharded": sharded, "product_gate": gate}))
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+        sys.exit(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t_start = time.time()
+    card = card_line()
+    made = dict(dev=torch.device("cuda", 0), card=card)
+    maker = {name: label for label, _, names in PHASES for name in names}
+    seconds = {}
+    for label, phase, _ in PHASES:
+        needs = inspect.signature(phase).parameters
+        missing = [name for name in needs if name not in made]
+        if missing:
+            fail(f"phase {label} not run: needs phase {maker[missing[0]]} ({missing[0]})")
+            continue
+        t0 = time.time()
+        try:
+            made.update(phase(**{name: made[name] for name in needs}) or {})
+        except Exception as e:
+            traceback.print_exc()
+            fail(f"phase {label} crashed: {type(e).__name__}: {e}")
+        seconds[label] = time.time() - t0
+        print(f"phase {label}: {seconds[label]:.1f} s", flush=True)
+    print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    print(f"total {time.time() - t_start:.1f} s")
+    print(f"{len(FAILURES)} failed checks, crashed or skipped phases"
+          + "".join(f"\n  {msg}" for msg in FAILURES), flush=True)
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                              "kind": torch.cuda.get_device_name(0),
-                                              "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": not FAILURES, "device": {"platform": "gpu",
+                                                      "kind": torch.cuda.get_device_name(0),
+                                                      "count": torch.cuda.device_count()}}))
+    sys.exit(1 if FAILURES else 0)
 
 
 if __name__ == "__main__":

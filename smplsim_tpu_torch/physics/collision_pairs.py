@@ -28,7 +28,8 @@ indexed from the right, (G,...) or (P,...) shared, (B,G,...) or (B,P,...)
 per env.
 
 On a CUDA device, where no input carries a derivative, `self_contacts` is
-one launch of Kernel F (ops/collision.py, counter "rows.self_kernel"); the
+one launch of Kernel F (ops/collision.py, counted by
+`collision.self_contacts.launches`); the
 composition below is its plain version: the CPU path, and the path of every
 gradient and forward tangent.
 """
@@ -650,7 +651,6 @@ def self_contacts(model: RobotModel, kin: Kin, keeps=None,
         out = collision.self_contacts(*(x.contiguous() for x in fr),
                                       *(x.to(dtype).contiguous() for x in fields),
                                       table, counts, keeps)
-        count("rows.self_kernel", 1)
         return SelfContacts(*out)
     return self_contacts_plain(model, kin, keeps, frames)
 

@@ -29,11 +29,11 @@ same QP settings; one cold evaluation, one timed warm one, one recorded
 with torch.profiler.
 
 Prints the wall time per control step (per Jacobian evaluation), the
-device's busy time in it (sum of kernel and copy times) and so its idle
-share, the device time and launches of each hand-written kernel by its
-device function's name, and the top device ops; the last line is one JSON
-object with these numbers and the card's name and power limit. Needs a
-CUDA card.
+device's busy time in it (simbench/trace.py's: the union of the intervals
+of its kernels, copies and sets) and so its idle share, the device time
+and launches of each hand-written kernel by its device function's name,
+and the top device ops; the last line is one JSON object with these
+numbers and the card's name and power limit. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -45,10 +45,11 @@ import sys
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+from simbench import trace  # noqa: E402
 
 QP = dict(qp_iters=16, qp_tol=1e-4, qp_rows=32)
 CFI = 15
@@ -74,50 +75,44 @@ HAND_WRITTEN = {
 
 
 def measure(run, reps: int, unit: str) -> dict:
-    """Wall ms per call of run() over `reps` calls, then the same under
-    torch.profiler: device busy ms, idle share, the hand-written kernels and
-    the top device ops, printed and returned."""
+    """Wall ms per call of run() over `reps` calls, then the same recorded by
+    simbench/trace.py's `record`: device busy ms (the union of the device
+    operations' intervals, as the benchmark reads it), idle share, the
+    hand-written kernels and the top device ops, printed and returned."""
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(reps):
         run()
     torch.cuda.synchronize()
     wall_plain = (time.time() - t0) / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) / reps
-    # device-side events only (kernels, copies, sets): the host-side aten
-    # ops report the same device time again as their own
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    busy = sum(dev_us(e) for e in events) / 1e3 / reps
+    rec = trace.record(run, reps)
+    wall = rec["window_s"] / reps
+    busy = rec["busy_s"] * 1e3 / reps
     idle = max(0.0, 1 - busy / (wall_plain * 1e3))
     print(f"wall per {unit} {wall_plain * 1e3:.1f} ms ({wall * 1e3:.1f} ms with the profiler "
           f"on); device busy {busy:.1f} ms: idle share {idle:.3f} of the unprofiled {unit}")
+    # {device op: [seconds, calls]} over the recorded calls
+    ops = rec["device_ops"]
     kern = {}
     for name, match in HAND_WRITTEN.items():
-        hit = [e for e in events if match(e.key)]
-        kern[name] = dict(device_ms=sum(dev_us(e) for e in hit) / 1e3 / reps,
-                          launches=sum(e.count for e in hit) / reps)
+        hit = [v for k, v in ops.items() if match(k)]
+        kern[name] = dict(device_ms=sum(s for s, _ in hit) * 1e3 / reps,
+                          launches=sum(c for _, c in hit) / reps)
     print(f"hand-written kernels per {unit}:")
     for name, k in kern.items():
         print(f"  {name}: device {k['device_ms']:.3f} ms, {k['launches']:.1f} launches")
     hand = sum(k["device_ms"] for k in kern.values())
     print(f"  all hand-written kernels: {hand:.3f} ms of the {busy:.1f} ms busy")
-    top = sorted(events, key=dev_us, reverse=True)[:25]
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:25]
     print(f"{'device ms':>10} {'calls':>8}  device op (per {unit})")
-    for e in top:
-        print(f"{dev_us(e) / 1e3 / reps:10.3f} {e.count / reps:8.1f}  {e.key[:90]}")
-    launches = sum(e.count for e in events) / reps
+    for k, (s, c) in top:
+        print(f"{s * 1e3 / reps:10.3f} {c / reps:8.1f}  {k[:90]}")
+    launches = sum(c for _, c in ops.values()) / reps
     print(f"device ops launched per {unit}: {launches:.0f}", flush=True)
     return {"wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3, "device_busy_ms": busy,
             "idle_share": idle, "device_launches": launches, "hand_written_ms": hand,
-            "kernels": kern, "top": [dict(op=e.key[:120], device_ms=dev_us(e) / 1e3 / reps,
-                                         calls=e.count / reps) for e in top[:10]]}
+            "kernels": kern, "top": [dict(op=k[:120], device_ms=s * 1e3 / reps, calls=c / reps)
+                                     for k, (s, c) in top[:10]]}
 
 
 def body_model(body: str, batch: int, dev):
